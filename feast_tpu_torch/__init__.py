@@ -1,0 +1,22 @@
+"""feast_tpu_torch: the PyTorch / CUDA port of feast_tpu.
+
+A second package beside the JAX one (`feast_tpu/`, the unchanged
+reference).  It imports torch and never jax or feast_tpu.  This first
+slice holds the dense mixed-precision FEAST path: `feast`, `gen_feast`
+and `feast_compiled`, with their LU, QR and eig building blocks, and two
+kernels written by hand for Hopper (sm_90a) in `csrc/`: the panel LU of
+the complex64 node factorizations and the one-launch complex Schur
+decomposition of the reduced eigenproblem.
+
+Entry points take `device=` (default "cuda") and raise when CUDA is
+requested but absent.  Importing the package turns TF32 off for CUDA
+matmuls (see `_device`).
+"""
+
+from . import _device, contour, cx, interop, ops, solvers
+from .contour import (Contour, circular_contour_gauss,
+                      circular_contour_trapezoidal, custom_contour,
+                      elliptical_contour_trapezoidal, in_contour,
+                      rational_func, rectangular_contour_gauss,
+                      rectangular_contour_trapezoidal, zolotarev_contour)
+from .solvers import FeastResult, dual_gen_feast, feast, feast_compiled, gen_feast

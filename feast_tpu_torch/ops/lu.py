@@ -1,0 +1,237 @@
+"""Blocked dense complex LU with partial pivoting, and triangular solves.
+
+Counterpart of `feast_tpu/ops/lu.py` on native complex tensors.  Every
+function takes leading batch dimensions (the contour-node axis of the
+drivers), so the JAX package's `vmap`-ed forms are the same functions here.
+
+Semantics kept from the JAX package:
+  * right-looking blocked LU: an unblocked panel step per column with
+    partial pivoting by argmax |.|^2 (lowest index wins ties), swaps
+    composed into one row permutation, U12 by a unit-lower solve and the
+    trailing update as one matmul;
+  * an exact zero pivot is replaced by eps * max|panel| and inverted by
+    Smith's reciprocal, so a singular shifted matrix (inverse iteration at
+    an exact shift) gives large-but-finite results where LAPACK's getrf
+    would return inf;
+  * `lu_diag_inv` inverts the diagonal blocks of L and U so repeated
+    solves become matmuls (`lu_solve(dinv=...)`).
+
+Dispatch: a complex64 CUDA matrix with n % 128 == 0 is factored by
+`panel_lu.lu_factor_panel`, whose panels are the hand-written Hopper
+kernel (the JAX package's gate at feast_tpu/ops/lu.py:413-415 sends f32
+matrices to its Pallas panel kernel the same way).  Everything else takes
+the plain blocked path below, as the JAX package does on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import cx
+
+
+def _flat(x: torch.Tensor, core: int):
+    """Reshape leading batch dims of `x` into one; returns (x3, batch)."""
+    batch = x.shape[:-core]
+    return x.reshape((-1,) + tuple(x.shape[-core:])), batch
+
+
+def _swap_rows(P: torch.Tensor, k: int, p: torch.Tensor):
+    """Swap row k with row p[b] of each batch matrix P (B, m, w), in place."""
+    rowk = P[:, k, :].clone()
+    idx = p[:, None, None].expand(-1, 1, P.shape[-1])
+    P[:, k, :] = torch.gather(P, 1, idx)[:, 0, :]
+    P.scatter_(1, idx, rowk[:, None, :])
+
+
+def _panel_lu(P: torch.Tensor):
+    """Unblocked LU with partial pivoting of (B, m, b) panels, m >= b.
+
+    Returns (P_factored, swaps) with swaps[:, k] the local row swapped with
+    row k at step k.  L (unit diagonal) below, U on and above."""
+    P = P.clone()
+    Bsz, m, b = P.shape
+    rdt = cx.real_dtype(P.dtype)
+    rows = torch.arange(m, device=P.device)
+    fi = torch.finfo(rdt)
+    # zero-pivot substitute scaled to the panel (LAPACK safe-minimum style)
+    pscale = torch.sqrt(torch.amax(cx.abs2(P), dim=(-2, -1)))
+    tiny = fi.eps * torch.clamp(pscale, min=fi.tiny ** 0.5)
+    swaps = torch.zeros((Bsz, b), dtype=torch.int64, device=P.device)
+    for k in range(min(b, m)):
+        mag = torch.where(rows >= k, cx.abs2(P[:, :, k]), -1.0)
+        p = torch.argmax(mag, dim=1)
+        swaps[:, k] = p
+        _swap_rows(P, k, p)
+        piv = P[:, k, k]
+        piv = torch.where(cx.abs2(piv) > 0, piv, tiny.to(P.dtype))
+        inv = cx.creciprocal(piv)
+        mult = P[:, k + 1:, k] * inv[:, None]
+        P[:, k + 1:, k] = mult
+        P[:, k + 1:, k + 1:] -= mult[:, :, None] * P[:, k, None, k + 1:]
+    return P, swaps
+
+
+def _swaps_to_perm(swaps: torch.Tensor, m: int) -> torch.Tensor:
+    """Compose sequential row swaps (B, b) into permutations (B, m)."""
+    Bsz = swaps.shape[0]
+    perm = torch.arange(m, device=swaps.device).repeat(Bsz, 1)
+    for k in range(swaps.shape[1]):
+        p = swaps[:, k:k + 1]
+        pk = perm[:, k:k + 1].clone()
+        perm[:, k:k + 1] = torch.gather(perm, 1, p)
+        perm.scatter_(1, p, pk)
+    return perm
+
+
+def _unit_lower_solve_small(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L X = B with L (..., b, b) unit lower triangular."""
+    X = B.clone()
+    for i in range(1, L.shape[-1]):
+        X[..., i, :] -= (L[..., i, None, :i] @ X[..., :i, :])[..., 0, :]
+    return X
+
+
+def _upper_solve_small(U: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve U X = B with U (..., b, b) upper triangular; a zero diagonal
+    entry is replaced by eps * max|U| (per matrix)."""
+    X = B.clone()
+    b = U.shape[-1]
+    fi = torch.finfo(cx.real_dtype(U.dtype))
+    uscale = torch.sqrt(torch.amax(cx.abs2(U), dim=(-2, -1)))
+    tiny = (fi.eps * torch.clamp(uscale, min=fi.tiny ** 0.5)).to(U.dtype)
+    for i in range(b - 1, -1, -1):
+        rhs = X[..., i, :]
+        if i + 1 < b:
+            rhs = rhs - (U[..., i, None, i + 1:] @ X[..., i + 1:, :])[..., 0, :]
+        d = U[..., i, i]
+        d = torch.where(cx.abs2(d) > 0, d, tiny)
+        X[..., i, :] = cx.cdiv(rhs, d[..., None])
+    return X
+
+
+def _pad_identity(LU: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Extend (..., n, n) to (..., n_pad, n_pad) with an identity block."""
+    n = LU.shape[-1]
+    if n_pad == n:
+        return LU
+    out = torch.zeros(LU.shape[:-2] + (n_pad, n_pad), dtype=LU.dtype,
+                      device=LU.device)
+    out[..., :n, :n] = LU
+    idx = torch.arange(n, n_pad, device=LU.device)
+    out[..., idx, idx] = 1.0
+    return out
+
+
+def lu_diag_inv(LU: torch.Tensor, block: int):
+    """Inverses of the (block, block) diagonal blocks of L (unit lower) and
+    U, each (..., nblocks, block, block) over blocks padded with an
+    identity extension.  Multiplying by them turns every diagonal-block
+    substitution of a repeated `lu_solve` into one matmul."""
+    n = LU.shape[-1]
+    n_pad = -(-n // block) * block
+    LUp = _pad_identity(LU, n_pad)
+    nb = n_pad // block
+    D = torch.stack([LUp[..., j * block:(j + 1) * block,
+                         j * block:(j + 1) * block] for j in range(nb)], dim=-3)
+    eye = torch.eye(block, dtype=LU.dtype, device=LU.device)
+    Ld = torch.tril(D, -1) + eye
+    Ud = torch.triu(D)
+    eyes = eye.expand(D.shape).clone()
+    return _unit_lower_solve_small(Ld, eyes), _upper_solve_small(Ud, eyes)
+
+
+def _auto_block(n: int) -> int:
+    """Panel width of the JAX package: 64 up to n=512, 128 above."""
+    return 64 if n <= 512 else 128
+
+
+def lu_factor(A: torch.Tensor, block: int = 0):
+    """Blocked LU with partial pivoting: P A = L U, over leading batch dims.
+
+    Returns (LU, perm): L (unit diagonal) and U packed in LU, and perm the
+    row permutation as an index vector (`lu_solve` uses B[perm]).
+    block=0 picks the panel width from n."""
+    n = A.shape[-1]
+    if A.shape[-2] != n:
+        raise ValueError(f"lu_factor expects square matrices, got {tuple(A.shape)}")
+    if A.dtype == torch.complex64 and A.is_cuda and n % 128 == 0:
+        from . import panel_lu
+
+        return panel_lu.lu_factor_panel(A, block=block or 128)
+    A3, batch = _flat(A, 2)
+    A3 = A3.clone()
+    block = block or _auto_block(n)
+    Bsz = A3.shape[0]
+    perm = torch.arange(n, device=A.device).repeat(Bsz, 1)
+    for j in range(0, n, block):
+        b = min(block, n - j)
+        panel, swaps = _panel_lu(A3[:, j:, j:j + b])
+        sub_perm = _swaps_to_perm(swaps, n - j)
+        idx = sub_perm[:, :, None]
+        # apply the panel's row permutation to the off-panel columns
+        if j > 0:
+            A3[:, j:, :j] = torch.gather(A3[:, j:, :j], 1,
+                                         idx.expand(-1, -1, j))
+        right = None
+        if j + b < n:
+            right = torch.gather(A3[:, j:, j + b:], 1,
+                                 idx.expand(-1, -1, n - j - b))
+        perm[:, j:] = torch.gather(perm[:, j:], 1, sub_perm)
+        A3[:, j:, j:j + b] = panel
+        if right is not None:
+            U12 = _unit_lower_solve_small(panel[:, :b, :b], right[:, :b])
+            A3[:, j:j + b, j + b:] = U12
+            A3[:, j + b:, j + b:] = right[:, b:] - panel[:, b:, :b] @ U12
+    return A3.reshape(batch + (n, n)), perm.reshape(batch + (n,))
+
+
+def lu_solve(LU: torch.Tensor, perm: torch.Tensor, B: torch.Tensor,
+             block: int = 0, dinv=None) -> torch.Tensor:
+    """Solve A X = B from (LU, perm) of `lu_factor`; B is (..., n, k) and
+    broadcasts against the factors' batch dims.
+
+    dinv: optional (invL, invU) from `lu_diag_inv` — each diagonal-block
+    substitution becomes a matmul; the block size is then taken from it."""
+    n = LU.shape[-1]
+    if dinv is not None:
+        block = dinv[0].shape[-1]
+    block = block or _auto_block(n)
+    batch = torch.broadcast_shapes(LU.shape[:-2], B.shape[:-2])
+    B = B.expand(batch + B.shape[-2:])
+    idx = perm.expand(batch + (n,))[..., None].expand(batch + (n, B.shape[-1]))
+    X = torch.gather(B, -2, idx)
+    starts = list(range(0, n, block))
+    for j in starts:                      # forward: L Y = P B (unit lower)
+        b = min(block, n - j)
+        Xj = X[..., j:j + b, :]
+        if j > 0:
+            Xj = Xj - LU[..., j:j + b, :j] @ X[..., :j, :]
+        if dinv is not None:
+            Xd = dinv[0][..., j // block, :b, :b] @ Xj
+        else:
+            Xd = _unit_lower_solve_small(LU[..., j:j + b, j:j + b], Xj)
+        X[..., j:j + b, :] = Xd
+    for j in reversed(starts):            # backward: U X = Y
+        b = min(block, n - j)
+        Xj = X[..., j:j + b, :]
+        if j + b < n:
+            Xj = Xj - LU[..., j:j + b, j + b:] @ X[..., j + b:, :]
+        if dinv is not None:
+            Xd = dinv[1][..., j // block, :b, :b] @ Xj
+        else:
+            Xd = _upper_solve_small(LU[..., j:j + b, j:j + b], Xj)
+        X[..., j:j + b, :] = Xd
+    return X
+
+
+def solve(A: torch.Tensor, B: torch.Tensor, block: int = 0) -> torch.Tensor:
+    """One-shot dense solve A X = B (factor + solve), batched."""
+    LU, perm = lu_factor(A, block=block)
+    return lu_solve(LU, perm, B, block=block)
+
+
+# The JAX package's vmapped forms: the functions above batch natively.
+lu_factor_batched = lu_factor
+lu_solve_batched = lu_solve
+solve_batched = solve

@@ -1,0 +1,158 @@
+"""Panel LU for the mixed-precision factor: the Hopper kernel
+`csrc/panel_lu.cu`, its plain PyTorch version, and the blocked host loop.
+
+Counterpart of `feast_tpu/ops/pallas_lu.py` (`_panel_kernel`, launched by
+`panel_slab_pallas`, driven by `lu_factor_pallas`).  One call factors a
+batch of (n, b) complex64 column slabs in place with pivot rows
+j0..j0+b-1: per column, argmax-|.|^2 partial pivoting over rows >= j0+k
+(lowest index wins ties), the row swap and the composed permutation, an
+exact zero pivot replaced by eps * max|slab| (max over the whole slab,
+taken before the first column) and inverted by Smith's reciprocal, the
+multipliers and the rank-1 update of the columns to the right; then the
+inverse of the unit-lower diagonal block L11.
+
+`lu_factor_panel` mirrors `lu_factor_pallas`: per panel one kernel call,
+the panel's row permutation applied to the other columns as one gather,
+U12 = invL11 @ A12 and the trailing update as matmuls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import cx
+from ..kernels import _build
+from .lu import _swap_rows
+
+# Launches of the CUDA kernel (plain-version calls do not count).
+launches = 0
+
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+MAX_BLOCK = 128
+
+
+def _check_slab(slab: torch.Tensor, j0: int):
+    if slab.dim() != 3:
+        raise ValueError(f"panel slab must be (batch, n, b), got {tuple(slab.shape)}")
+    _, n, b = slab.shape
+    if not 1 <= b <= MAX_BLOCK or j0 < 0 or j0 + b > n:
+        raise ValueError(f"panel: need 1 <= b <= {MAX_BLOCK} and j0 + b <= n "
+                         f"(n={n}, b={b}, j0={j0})")
+
+
+def panel_factor(slab: torch.Tensor, j0: int):
+    """Factor the (batch, n, b) slab in place; returns (slab, perm (batch, n)
+    int32, invL11 (batch, b, b)).
+
+    `slab` may be a column slice of a larger matrix (unit stride in the
+    last dim).  A CUDA tensor runs the kernel; a CPU tensor runs the plain
+    version."""
+    global launches
+    _check_slab(slab, j0)
+    if not slab.is_cuda:
+        return panel_factor_plain(slab, j0)
+    if slab.dtype != torch.complex64 or slab.stride(-1) != 1:
+        raise ValueError("panel kernel takes complex64 slabs with unit "
+                         f"column stride (got {slab.dtype}, strides {slab.stride()})")
+    Bsz, n, b = slab.shape
+    perm = torch.empty((Bsz, n), dtype=torch.int32, device=slab.device)
+    invL = torch.empty((Bsz, b, b), dtype=torch.complex64, device=slab.device)
+    fn = _build.function("panel_lu", "feast_panel_lu_c64", _ARGTYPES)
+    err = fn(slab.data_ptr(), slab.stride(0), slab.stride(1), n, b, j0, Bsz,
+             perm.data_ptr(), invL.data_ptr(),
+             torch.cuda.current_stream(slab.device).cuda_stream)
+    _build.check(err, "panel_lu kernel")
+    launches += 1
+    return slab, perm, invL
+
+
+def panel_factor_plain(slab: torch.Tensor, j0: int):
+    """Plain PyTorch version of `panel_factor` (same in-place contract).
+
+    Works on the real and imaginary planes with one rounded operation per
+    step, in the kernel's order, so that on the card the two round alike
+    and choose the same pivots."""
+    _check_slab(slab, j0)
+    Bsz, n, b = slab.shape
+    rdt = cx.real_dtype(slab.dtype)
+    re = slab.real.clone()
+    im = slab.imag.clone()
+    eps = torch.finfo(rdt).eps
+    tiny = eps * torch.clamp(torch.sqrt(torch.amax(re * re + im * im,
+                                                   dim=(1, 2))), min=1e-30)
+    rows = torch.arange(n, device=slab.device)
+    perm = torch.arange(n, device=slab.device).repeat(Bsz, 1)
+    for k in range(b):
+        g = j0 + k
+        ck_re, ck_im = re[:, :, k], im[:, :, k]
+        mag = torch.where(rows >= g, ck_re * ck_re + ck_im * ck_im, -1.0)
+        p = torch.argmax(mag, dim=1)
+        for plane in (re, im, perm[:, :, None]):
+            _swap_rows(plane, g, p)
+        pr, pi = re[:, g, k], im[:, g, k]
+        nz = (pr != 0) | (pi != 0)
+        pr = torch.where(nz, pr, tiny)
+        pi = torch.where(nz, pi, 0.0)
+        # Smith's reciprocal, as feast_tpu/ops/pallas_lu.py:110-118
+        big = pr.abs() >= pi.abs()
+        r1 = pi / torch.where(pr == 0, 1.0, pr)
+        den1 = pr + pi * r1
+        r2 = pr / torch.where(pi == 0, 1.0, pi)
+        den2 = pr * r2 + pi
+        inv_r = torch.where(big, 1.0 / den1, r2 / den2)[:, None]
+        inv_i = torch.where(big, -r1 / den1, -1.0 / den2)[:, None]
+        cr, ci = re[:, g + 1:, k], im[:, g + 1:, k]
+        mr = cr * inv_r - ci * inv_i
+        mi = cr * inv_i + ci * inv_r
+        re[:, g + 1:, k] = mr
+        im[:, g + 1:, k] = mi
+        ur, ui = re[:, g, None, k + 1:], im[:, g, None, k + 1:]
+        mr, mi = mr[:, :, None], mi[:, :, None]
+        re[:, g + 1:, k + 1:] -= mr * ur - mi * ui
+        im[:, g + 1:, k + 1:] -= mr * ui + mi * ur
+    # invL11 by column-oriented forward substitution (the kernel's order)
+    Lr, Li = re[:, j0:j0 + b, :], im[:, j0:j0 + b, :]
+    Xr = torch.eye(b, dtype=rdt, device=slab.device).repeat(Bsz, 1, 1)
+    Xi = torch.zeros_like(Xr)
+    for l in range(b - 1):
+        lr, li = Lr[:, l + 1:, l, None], Li[:, l + 1:, l, None]
+        xr, xi = Xr[:, l, None, :], Xi[:, l, None, :]
+        Xr[:, l + 1:, :] -= lr * xr - li * xi
+        Xi[:, l + 1:, :] -= lr * xi + li * xr
+    slab.copy_(torch.complex(re, im))
+    return slab, perm.to(torch.int32), torch.complex(Xr, Xi)
+
+
+def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor):
+    """Blocked LU with partial pivoting through `panel_factor`, over leading
+    batch dims; n % block == 0.  Same contract as `lu.lu_factor`.
+
+    panel: the panel step; `panel_factor_plain` runs the plain version on
+    any device (to hold the kernel against it)."""
+    n = A.shape[-1]
+    if A.shape[-2] != n or n % block != 0:
+        raise ValueError(f"lu_factor_panel needs square (..., n, n) with "
+                         f"n % block == 0 (shape {tuple(A.shape)}, block={block})")
+    batch = A.shape[:-2]
+    A3 = A.reshape(-1, n, n).clone()
+    perm = torch.arange(n, device=A.device).repeat(A3.shape[0], 1)
+    for j in range(0, n, block):
+        e = j + block
+        _, pb, invL = panel(A3[:, :, j:e], j)
+        pb = pb.long()
+        # the panel's swaps touch rows >= j only: one gather of those rows
+        # applies them to every column outside the slab
+        idx = (pb[:, j:] - j)[:, :, None]
+        if j > 0:
+            A3[:, j:, :j] = torch.gather(A3[:, j:, :j], 1, idx.expand(-1, -1, j))
+        perm = torch.gather(perm, 1, pb)
+        if e < n:
+            A3[:, j:, e:] = torch.gather(A3[:, j:, e:], 1, idx.expand(-1, -1, n - e))
+            U12 = invL @ A3[:, j:e, e:]
+            A3[:, j:e, e:] = U12
+            A3[:, e:, e:] -= A3[:, e:, j:e] @ U12
+    return A3.reshape(batch + (n, n)), perm.reshape(batch + (n,))

@@ -1,0 +1,131 @@
+"""Tall-skinny orthonormalization: shifted CholeskyQR2/3 with the small
+Cholesky factor and triangular solves.
+
+Counterpart of `feast_tpu/ops/qr.py` on native complex tensors, with the
+same guards: a relative pivot floor and the phase-preserving clamp of the
+Cholesky columns (a rank-deficient Gram stays finite), eps^2 substitution
+of zero diagonals in the triangular solves, and the max-abs column
+pre-scaling of `colscale_unit`.  Householder QR is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import cx
+
+
+def cholesky(G: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor L of a Hermitian positive (semi)definite G.
+
+    A breakdown pivot (not finite or below eps^2 * max(max|diag|, 1)) gets
+    diagonal sqrt(floor) and zeros below it; other entries are clamped to
+    2 sqrt(g0) in magnitude."""
+    m = G.shape[-1]
+    G = G.clone()
+    rows = torch.arange(m, device=G.device)
+    eps = torch.finfo(cx.real_dtype(G.dtype)).eps
+    g0 = torch.clamp(torch.max(torch.abs(torch.diagonal(G).real)), min=1.0)
+    floor = eps * eps * g0
+    cap = 2.0 * torch.sqrt(g0)
+    for k in range(m):
+        dkk = G[k, k].real
+        deficient = ~(torch.isfinite(dkk) & (dkk > floor))
+        d = torch.sqrt(torch.where(deficient, floor, dkk))
+        col = G[:, k]
+        below, at_k, at_or_below = rows > k, rows == k, rows >= k
+        cre = torch.where(below & deficient, 0.0,
+                          torch.where(at_k & deficient, d * d, col.real))
+        cim = torch.where(at_or_below & deficient, 0.0, col.imag)
+        col = torch.complex(cre, cim)
+        newcol = torch.where(at_or_below, col / d, col)
+        mag = cx.cabs(newcol)
+        scale_dn = torch.where(mag > cap, cap / torch.where(mag > cap, mag, 1.0), 1.0)
+        newcol = torch.where(below, newcol * scale_dn, newcol)
+        G[:, k] = newcol
+        lk = torch.where(below, newcol, 0.0)
+        G -= torch.outer(lk, lk.conj())
+    return torch.tril(G)
+
+
+def solve_lower(L: torch.Tensor, B: torch.Tensor, unit: bool = False) -> torch.Tensor:
+    """Solve L X = B, L (m, m) lower triangular, B (m, k)."""
+    m = L.shape[-1]
+    X = B.clone()
+    eps = torch.finfo(cx.real_dtype(L.dtype)).eps
+    for i in range(m):
+        rhs = X[i] - L[i, :i] @ X[:i]
+        if not unit:
+            d = L[i, i]
+            d = torch.where(cx.abs2(d) > 0, d, torch.full_like(d, eps * eps))
+            rhs = cx.cdiv(rhs, d)
+        X[i] = rhs
+    return X
+
+
+def solve_upper(U: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve U X = B, U (m, m) upper triangular, B (m, k)."""
+    m = U.shape[-1]
+    X = B.clone()
+    eps = torch.finfo(cx.real_dtype(U.dtype)).eps
+    for i in range(m - 1, -1, -1):
+        rhs = X[i] - U[i, i + 1:] @ X[i + 1:]
+        d = U[i, i]
+        d = torch.where(cx.abs2(d) > 0, d, torch.full_like(d, eps * eps))
+        X[i] = cx.cdiv(rhs, d)
+    return X
+
+
+def right_solve_upper(A: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """A R^{-1} (A (n, m), R (m, m) upper) via R^H Y = A^H."""
+    return solve_lower(R.mH, A.mH).mH.resolve_conj()
+
+
+def cholqr(A: torch.Tensor, shift: bool = True):
+    """One (shifted) CholeskyQR pass: (Q, R) with A = Q R."""
+    n, m = A.shape
+    G = cx.cgram(A)
+    if shift:
+        eps = torch.finfo(cx.real_dtype(A.dtype)).eps
+        # shifted CholeskyQR (Fukaya et al. 2020)
+        s = 11.0 * (m * n + n * (n + 1)) * eps * torch.trace(G.real) / m
+        G = G + s * torch.eye(m, dtype=G.dtype, device=G.device)
+    R = cholesky(G).mH
+    return right_solve_upper(A, R), R
+
+
+def cholqr2(A: torch.Tensor):
+    """Shifted CholeskyQR2."""
+    Q1, R1 = cholqr(A, shift=True)
+    Q2, R2 = cholqr(Q1, shift=False)
+    return Q2, R2 @ R1
+
+
+def cholqr3(A: torch.Tensor):
+    """Shifted CholeskyQR3."""
+    Q1, R1 = cholqr(A, shift=True)
+    Q2, R2 = cholqr(Q1, shift=True)
+    Q3, R3 = cholqr(Q2, shift=False)
+    return Q3, R3 @ (R2 @ R1)
+
+
+def colscale_unit(A: torch.Tensor) -> torch.Tensor:
+    """Scale columns to unit 2-norm with a max-abs pre-scale, so columns
+    with tiny entries do not underflow the squared-norm sum."""
+    tiny = torch.finfo(cx.real_dtype(A.dtype)).tiny
+    amax = torch.amax(torch.maximum(A.real.abs(), A.imag.abs()), dim=0)
+    As = A * (1.0 / torch.where(amax > tiny, amax, 1.0))
+    nrm = torch.sqrt(torch.sum(cx.abs2(As), dim=0))
+    return As * (1.0 / torch.where(nrm > tiny, nrm, 1.0))
+
+
+def orthonormalize(A: torch.Tensor, method: str = "cholqr2") -> torch.Tensor:
+    """Orthonormal basis of range(A) after `colscale_unit`."""
+    A = colscale_unit(A)
+    if method == "cholqr2":
+        return cholqr2(A)[0]
+    if method == "cholqr3":
+        return cholqr3(A)[0]
+    if method == "householder":
+        raise NotImplementedError("householder_qr is not ported yet")
+    raise ValueError(f"unknown method {method}")

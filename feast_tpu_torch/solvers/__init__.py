@@ -1,0 +1,1 @@
+from .feast import FeastResult, dual_gen_feast, feast, feast_compiled, gen_feast
