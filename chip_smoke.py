@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (feast_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases, needs one CUDA card
-    python3 chip_smoke.py --phases k1,k2  # a subset; no kernels/ok lines
+    python3 chip_smoke.py --phases k3,k4  # a subset; no kernels/ok lines
 
 Phases, each printing one JSON line:
   build   compile csrc/*.cu for sm_90a (one nvcc per source, in parallel)
@@ -12,6 +12,17 @@ Phases, each printing one JSON line:
           factor, with torch.linalg.lu_factor as a library yardstick
   k2      the Schur kernel against its plain version at n = 2, 48, 128, with
           torch.linalg.eig as a yardstick
+  k3      the complex64 matrix-product kernel against its plain version (four
+          real fp32 matmuls on the planes) at (256, 256, 256), (300, 130, 384)
+          and the dense path's shapes (3968 x 128 x 3968 and 128 x 128 x 48,
+          batch 16), with torch.matmul on complex64 as a yardstick; then
+          feast_compiled with cx.set_gemm_backend("cuda"): at n = 1024 against
+          LAPACK eigenvalues, and on the main path's problem (n = 4096), whose
+          factor gives the kernel the timed shapes, counting its launches
+  k4      the DIA sparse-product kernel against its plain version (shifted
+          slices) on four small band structures and at the level-0 shape of
+          the sparse path (9 diagonals of the 1000 x 1000 grid pencil,
+          n = 1e6, m = 8, 8 nodes), with torch.sparse CSR as a yardstick
   small   feast_compiled on the bench problem at n = 512 against LAPACK
           eigenvalues (numpy)
   main    feast_compiled(mixed_prec=True) on bench.py's problem (n = 4096,
@@ -23,6 +34,17 @@ Phases, each printing one JSON line:
   profile two more main-path solves: per driver phase host walls (each phase
           synchronized), then one under torch.profiler for the device busy
           share, kernel launch calls and the kernels with most device time
+  sparse  feast_iterative on the 1M-dof generalized grid pencil (K = T (+) T
+          5-point stiffness, B = M (x) M 9-point mass, N = 1000, lowest slice,
+          m0 = 8, 8 nodes, AMG on strength aggregates with a complex64 V-cycle,
+          bicgstab_rr): the DIA
+          kernel's launches counted over the solve, eigenvalues against the
+          exact separable spectrum, residuals recomputed on the host with
+          scipy in float64; and a Jacobi-preconditioned complex64 Krylov
+          solve at N = 200 that launches the DIA kernel outside AMG
+  sparse_profile  one more sweep of the sparse path with per-phase host walls
+          (Rayleigh-Ritz, node solves, V-cycle share), and one under
+          torch.profiler: device busy share, top kernels
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failed check raises, and the script exits non-zero without the ok line.
 The script never imports JAX or the JAX package.
@@ -39,7 +61,8 @@ import time
 
 import numpy as np
 
-PHASES = ("k1", "k2", "small", "main", "profile")
+PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "sparse",
+          "sparse_profile")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32, outside the tensor cores
 
@@ -273,6 +296,181 @@ def phase_k2(torch, schur_kernel, dev):
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# K3: complex64 matrix product
+# ---------------------------------------------------------------------------
+
+def phase_k3(torch, ft, dev):
+    cmk = importlib.import_module("feast_tpu_torch.ops.cmatmul_kernel")
+    cx = ft.cx
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {"phase": "k3"}
+    row = None
+    # (batch, M, K, N); the last three are the dense path's, 16 nodes: a
+    # diagonal-block solve and the first trailing updates of the n = 1024
+    # and n = 4096 factors
+    shapes = [(1, 256, 256, 256), (1, 300, 130, 384), (16, 128, 128, 48),
+              (16, 896, 128, 896), (16, 3968, 128, 3968)]
+    for Bsz, M, K, N in shapes:
+        a = torch.randn((Bsz, M, K), dtype=torch.complex64, device=dev, generator=gen)
+        b = torch.randn((Bsz, K, N), dtype=torch.complex64, device=dev, generator=gen)
+        got = cmk.cmatmul(a, b)
+        want = cx._cmatmul_planes(a, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ref = (a[0].to(torch.complex128) @ b[0].to(torch.complex128))
+        err64 = float((got[0] - ref).abs().max())
+        # fp32 sums of K products of O(1) terms in another order than the
+        # library's: the JAX test's bound, 1e-3 sqrt(K) absolute
+        require(err <= 1e-3 * np.sqrt(K), f"k3 {M}x{K}x{N}: err {err} vs plain")
+        require(err64 <= 1e-3 * np.sqrt(K), f"k3 {M}x{K}x{N}: err {err64} vs complex128")
+        reps = 3 if M * N * K * Bsz > 1e10 else 20
+        k_ms = cuda_ms(lambda: cmk.cmatmul(a, b), reps)
+        p_ms = cuda_ms(lambda: cx._cmatmul_planes(a, b), reps)
+        l_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
+        # the function needs three real products per complex one (the
+        # Karatsuba form): 6 M N K operations; the kernel executes the
+        # four-product form, 8 M N K, which is the rate it reports
+        bms, bby = bound_ms(8 * Bsz * (M * K + K * N + M * N), 6 * Bsz * M * N * K)
+        out[f"{Bsz}x{M}x{K}x{N}"] = {
+            "max_abs_err": err, "max_abs_err_vs_complex128": err64,
+            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": bms, "bound_by": bby,
+            "executed_tflops": 8 * Bsz * M * N * K / k_ms / 1e9}
+        if M == 3968:
+            row = {"name": "cmatmul", "route": "cuda",
+                   "source": "feast_tpu_torch/csrc/cmatmul.cu",
+                   "replaces": "feast_tpu/ops/pallas_kernels.py:47",
+                   "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": bms, "bound_by": bby, "library_ms": l_ms}
+        del a, b, got, want
+    torch.cuda.empty_cache()
+
+    # the dense path through the kernel: every complex64 product of the
+    # factor and of the solves goes to it
+    def dense_solve(n):
+        A, X0, c, r = bench_problem(n=n)
+        cx.set_gemm_backend("cuda")
+        try:
+            cmk.launches = 0
+            t0 = time.perf_counter()
+            res = ft.feast_compiled(A, X0, c=c, r=r, nodes=16, iters=20, tol=1e-10,
+                                    mixed_prec=True, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cmk.launches
+        finally:
+            cx.set_gemm_backend("torch")
+        lam, rr = host_residuals(A, res)
+        require(res.converged and rr.max() < 1e-10,
+                f"k3 dense n={n}: converged {res.converged}, residual {rr.max()}")
+        require(launches > 0, f"k3 dense n={n}: the kernel was not launched")
+        info = {"inside": int(len(lam)), "iterations": res.n_iter,
+                "max_residual_host_f64": float(rr.max()), "wall_s": wall,
+                "launches": launches}
+        return A, c, r, lam, info
+
+    A, c, r, lam, info = dense_solve(1024)
+    ref = np.linalg.eigvals(A)
+    ref = ref[np.abs(ref - c) <= r]
+    require(len(lam) == len(ref), f"k3 dense n=1024: {len(lam)} inside, LAPACK {len(ref)}")
+    info["eig_err_vs_lapack"] = _match_err(lam, ref)
+    require(info["eig_err_vs_lapack"] < 1e-10,
+            f"k3 dense n=1024: eig err {info['eig_err_vs_lapack']}")
+    out["dense_n1024_backend_cuda"] = info
+    # the main path's problem: its first trailing update is the shape timed above
+    _, _, _, lam, info = dense_solve(4096)
+    require(len(lam) >= 1, "k3 dense n=4096: no eigenvalue inside")
+    out["dense_n4096_backend_cuda"] = info
+    emit(out)
+    row["launches"] = info["launches"]
+    return row
+
+
+# ---------------------------------------------------------------------------
+# K4: DIA sparse product
+# ---------------------------------------------------------------------------
+
+def grid_offsets(N):
+    """Diagonals of the 9-point operators on an N x N grid, row-major."""
+    return (-N - 1, -N, -N + 1, -1, 0, 1, N - 1, N, N + 1)
+
+
+def _dia_to_sparse_csr(torch, data, offsets, ncols):
+    """torch.sparse CSR tensor of one (ndiag, n) DIA operator."""
+    n = data.shape[-1]
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(offsets):
+        lo, hi = max(0, -off), min(n, ncols - off)
+        i = torch.arange(lo, hi, device=data.device)
+        rows.append(i)
+        cols.append(i + off)
+        vals.append(data[k, lo:hi])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                  torch.cat(vals), (n, ncols)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def phase_k4(torch, dev):
+    dk = importlib.import_module("feast_tpu_torch.ops.dia_kernel")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {"phase": "k4"}
+    row = None
+    cases = [((-1, 0, 1), 700, 16, 1), ((-32, -1, 0, 1, 32), 512, 8, 1),
+             ((2, 5), 300, 16, 1), ((-7, -3), 300, 16, 1),
+             (grid_offsets(1000), 1_000_000, 8, 8)]
+    for offs, n, m, Bsz in cases:
+        data = torch.randn((Bsz, len(offs), n), dtype=torch.complex64, device=dev,
+                           generator=gen)
+        X = torch.randn((Bsz, n, m), dtype=torch.complex64, device=dev, generator=gen)
+        got = dk.dia_matvec(data, offs, X)
+        want = dk.dia_matvec_plain(data, offs, X)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        # both sum ndiag fp32 products per entry in the same order; the
+        # kernel contracts multiply-adds, the plain version rounds each
+        # product: 1e-5 of the largest entry
+        require(err <= 1e-5 * scale, f"k4 {offs} n={n}: err {err} (scale {scale})")
+        # one shared operator against batched X, as the unshifted products use it
+        got1 = dk.dia_matvec(data[0], offs, X)
+        want1 = dk.dia_matvec_plain(data[0], offs, X)
+        err1 = float((got1 - want1).abs().max())
+        require(err1 <= 1e-5 * scale, f"k4 {offs} n={n}: shared-data err {err1}")
+        del got1, want1
+        reps = 10
+        k_ms = cuda_ms(lambda: dk.dia_matvec(data, offs, X), reps)
+        p_ms = cuda_ms(lambda: dk.dia_matvec_plain(data, offs, X), reps)
+        try:  # the library's product of the same operators, one node at a time
+            csr = [_dia_to_sparse_csr(torch, data[i], offs, n) for i in range(Bsz)]
+            lib = torch.stack([torch.sparse.mm(csr[i], X[i]) for i in range(Bsz)])
+            lib_err = float((lib - want).abs().max())
+            require(lib_err <= 1e-4 * scale, f"k4 library yardstick disagrees: {lib_err}")
+            l_ms = cuda_ms(lambda: [torch.sparse.mm(csr[i], X[i]) for i in range(Bsz)], reps)
+            del csr, lib
+        except (RuntimeError, NotImplementedError) as e:  # no complex64 CSR product
+            out.setdefault("library_unavailable", str(e)[:200])
+            l_ms = None
+        inrange = sum(min(n, n - off) - max(0, -off) for off in offs)
+        nbytes = Bsz * 8 * (len(offs) * n + 2 * n * m)
+        bms, bby = bound_ms(nbytes, 8 * Bsz * inrange * m)
+        out[f"n{n}_m{m}_b{Bsz}_d{len(offs)}"] = {
+            "max_abs_err": err, "scale": scale, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": bms, "bound_by": bby,
+            "gbytes_per_s": nbytes / k_ms / 1e6}
+        if n == 1_000_000:
+            row = {"name": "dia_spmm", "route": "cuda",
+                   "source": "feast_tpu_torch/csrc/dia_spmm.cu",
+                   "replaces": "feast_tpu/ops/pallas_kernels.py:108",
+                   "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": bms, "bound_by": bby, "library_ms": l_ms}
+        del data, X, got, want
+    torch.cuda.empty_cache()
+    emit(out)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # the FEAST main path
 # ---------------------------------------------------------------------------
@@ -423,6 +621,223 @@ def phase_profile(torch, ft, dev):
                              for e in top]})
 
 
+# ---------------------------------------------------------------------------
+# the sparse iterative path
+# ---------------------------------------------------------------------------
+
+def build_pencil(N):
+    """2-D tensor pencil on an N x N grid: K = T (+) T (5-point stiffness),
+    B = M (x) M (9-point bilinear mass, M = tridiag(1, 4, 1) / 6), and the
+    exact separable spectrum (t_i + t_j) / (m_i m_j), sorted."""
+    import scipy.sparse as sp
+
+    T1 = sp.diags([np.full(N, 2.0), -np.ones(N - 1), -np.ones(N - 1)],
+                  [0, 1, -1], format="csr")
+    M1 = sp.diags([np.full(N, 4 / 6), np.full(N - 1, 1 / 6),
+                   np.full(N - 1, 1 / 6)], [0, 1, -1], format="csr")
+    I = sp.identity(N, format="csr")
+    K = (sp.kron(T1, I) + sp.kron(I, T1)).tocsr().astype(np.complex128)
+    B = sp.kron(M1, M1).tocsr().astype(np.complex128)
+    k = np.arange(1, N + 1)
+    t = 2 - 2 * np.cos(k * np.pi / (N + 1))
+    m = (2 + np.cos(k * np.pi / (N + 1))) / 3
+    lam = np.sort(((t[:, None] + t[None, :]) / (m[:, None] * m[None, :])).ravel())
+    return K, B, lam
+
+
+def lowest_slice(lam):
+    """The lowest cluster: the 5 smallest, whose degenerate pair pulls in a 6th."""
+    return complex((lam[0] + lam[4]) / 2), float((lam[4] - lam[0]) * 0.75)
+
+
+SPARSE_KW = dict(nodes=8, iters=8, tol=1e-10, precondition="amg",
+                 solver="bicgstab_rr", solve_tol=1e-9, solve_iters=120)
+
+
+def sparse_amg_opts(torch):
+    """complex64 V-cycle on strength-of-connection aggregates.  The package
+    default ("auto": contiguous runs of 3 rows on banded levels) coarsens
+    the grid along one axis only; already on a 60 x 60 grid with 6 levels
+    BiCGStab then needs its whole iteration cap of 120
+    (tests/test_torch_amg.py::test_auto_aggregation_stalls_on_deep_2d_hierarchy)."""
+    return {"dtype": torch.float32, "aggregate": "strength"}
+
+
+class Patched:
+    """Replace attributes for the length of a with block."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.saved = [getattr(m, name) for m, name, _ in self.triples]
+        for m, name, new in self.triples:
+            setattr(m, name, new)
+
+    def __exit__(self, *exc):
+        for (m, name, _), old in zip(self.triples, self.saved):
+            setattr(m, name, old)
+
+
+def phase_sparse(torch, ft, dev, N=1000):
+    dk = importlib.import_module("feast_tpu_torch.ops.dia_kernel")
+    schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
+    amgmod = importlib.import_module("feast_tpu_torch.ops.amg")
+    krylov = importlib.import_module("feast_tpu_torch.ops.krylov")
+    spmod = importlib.import_module("feast_tpu_torch.ops.sparse")
+
+    # the DIA kernel outside AMG: a Jacobi-preconditioned complex64 BiCGStab
+    # on the N = 200 pencil at a shift left of the spectrum
+    Ks, Bs, _ = build_pencil(200)
+    ns = Ks.shape[0]
+    zs = -1.0 + 0.5j
+    Kop = spmod.as_operator(Ks, torch.complex64, dev)
+    Bop = spmod.as_operator(Bs, torch.complex64, dev)
+    zt = torch.tensor(zs, dtype=torch.complex64, device=dev)
+    rng = np.random.default_rng(1)
+    rhs = rng.standard_normal((ns, 4)) + 1j * rng.standard_normal((ns, 4))
+    dk.launches = 0
+    sol = krylov.bicgstab(spmod.shifted_matvec(Kop, Bop, zt),
+                          torch.as_tensor(rhs, dtype=torch.complex64, device=dev),
+                          tol=1e-5, maxiter=500,
+                          M=spmod.jacobi_preconditioner(Kop, Bop, zt))
+    torch.cuda.synchronize()
+    xs = sol.x.cpu().numpy().astype(np.complex128)
+    rel = (np.linalg.norm((Ks - zs * Bs) @ xs - rhs, axis=0) / np.linalg.norm(rhs, axis=0)).max()
+    require(isinstance(Kop, spmod.DIA) and dk.launches > 0,
+            "sparse: the complex64 Jacobi solve did not launch the DIA kernel")
+    require(bool(sol.converged.all()) and rel < 1e-4,
+            f"sparse: complex64 Jacobi solve residual {rel}")
+    jacobi = {"n": ns, "iters": int(sol.iters), "true_rel_residual_host_f64": float(rel),
+              "dia_launches": dk.launches}
+
+    t0 = time.perf_counter()
+    K, B, lam = build_pencil(N)
+    n = N * N
+    c, r = lowest_slice(lam)
+    exact = lam[np.abs(lam - c) <= r]
+    X0 = np.random.default_rng(0)
+    X0 = X0.standard_normal((n, 8)) + 1j * X0.standard_normal((n, 8))
+    build_s = time.perf_counter() - t0
+
+    kept = {}
+    build_amg, rr_solver = amgmod.build_amg, krylov.bicgstab_rr
+    iters_log = []
+
+    def timed_build(*a, **k):
+        t0 = time.perf_counter()
+        kept["amg"] = build_amg(*a, **k)
+        torch.cuda.synchronize()
+        kept["setup_s"] = time.perf_counter() - t0
+        return kept["amg"]
+
+    def logged_solver(*a, **k):
+        sol = rr_solver(*a, **k)
+        iters_log.append(sol.iters.cpu().tolist())
+        return sol
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dk.launches = 0
+    schur_kernel.launches = 0
+    with Patched((amgmod, "build_amg", timed_build), (krylov, "bicgstab_rr", logged_solver)):
+        t0 = time.perf_counter()
+        res = ft.feast_iterative(K, B, X0, c=c, r=r, device=dev,
+                                 amg_opts=sparse_amg_opts(torch), **SPARSE_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"dia_spmm": dk.launches, "schur": schur_kernel.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    lamf, Xf, _ = res.filtered()
+    order = np.argsort(lamf.real)
+    lamf, Xf = lamf[order], Xf[:, order]
+    host_res = np.linalg.norm(K @ Xf - (B @ Xf) * lamf[None, :], axis=0)
+    require(res.converged, "sparse: not converged")
+    require(len(lamf) == len(exact) == 6, f"sparse: {len(lamf)} inside, exact {len(exact)}")
+    relerr = float(np.max(np.abs(lamf - exact) / exact))
+    require(relerr < 1e-9, f"sparse: eigenvalue relative error {relerr}")
+    require(np.isfinite(host_res).all() and host_res.max() < 1e-10,
+            f"sparse: host residual {host_res.max()}")
+    require(launches["dia_spmm"] > 0, "sparse: the DIA kernel was not launched")
+    amg = kept["amg"]
+    emit({"phase": "sparse", "N": N, "n": n, "m0": 8, "nodes": 8,
+          "inside": int(len(lamf)), "iterations": res.n_iter, "sweeps": res.n_sweeps,
+          "max_eig_relerr": relerr, "max_residual_host_f64": float(host_res.max()),
+          "wall_s": wall, "amg_setup_s": kept["setup_s"],
+          "solve_s": wall - kept["setup_s"], "pencil_build_s": build_s,
+          "per_sweep_s": (wall - kept["setup_s"]) / max(res.n_sweeps, 1),
+          "launches_per_solve": launches,
+          "bicgstab_iters_per_sweep_per_node": iters_log,
+          "levels": [[type(L.A_op).__name__, L.A_op.shape[0],
+                      getattr(L.A_op, "ndiag", None), type(L.P).__name__]
+                     for L in amg.levels] + [["dense", amg.Ac.shape[0], None, None]],
+          "peak_mem_gb": peak, "jacobi_complex64_n40000": jacobi})
+    return launches["dia_spmm"], (K, B, X0, c, r, amg)
+
+
+def phase_sparse_profile(torch, ft, dev, problem):
+    """One sweep of the sparse path (Rayleigh-Ritz, then the node solves from
+    a cold start) twice on the hierarchy of the `sparse` phase: once with
+    host timers around its phases, each synchronized, once under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    amgmod = importlib.import_module("feast_tpu_torch.ops.amg")
+    krylov = importlib.import_module("feast_tpu_torch.ops.krylov")
+    ifmod = importlib.import_module("feast_tpu_torch.solvers.ifeast")
+    dk = importlib.import_module("feast_tpu_torch.ops.dia_kernel")
+    K, B, X0, c, r, amg = problem
+    kw = dict(SPARSE_KW, iters=0, c=c, r=r, device=dev, amg_opts=sparse_amg_opts(torch))
+    phases = {}
+
+    def timer(fn, name):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            tot, cnt = phases.get(name, (0.0, 0))
+            phases[name] = (tot + time.perf_counter() - t0, cnt + 1)
+            return out
+        return run
+
+    make_precond = amgmod.shifted_preconditioner
+
+    def timed_precond(*a, **k):
+        return timer(timer(make_precond, "vcycle_setup")(*a, **k), "vcycle")
+
+    reuse = (amgmod, "build_amg", lambda *a, **k: amg)
+    with Patched(reuse, (amgmod, "shifted_preconditioner", timed_precond),
+                 (krylov, "bicgstab_rr", timer(krylov.bicgstab_rr, "node_solves")),
+                 (ifmod.qrmod, "orthonormalize", timer(ifmod.qrmod.orthonormalize, "orthonormalize")),
+                 (ifmod.eigmod, "gen_eig", timer(ifmod.eigmod.gen_eig, "gen_eig"))):
+        dk.launches = 0
+        t0 = time.perf_counter()
+        ft.feast_iterative(K, B, X0, **kw)
+        torch.cuda.synchronize()
+        wall_timed = time.perf_counter() - t0
+        k4 = dk.launches
+    with Patched(reuse):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ft.feast_iterative(K, B, X0, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    emit({"phase": "sparse_profile", "one_sweep_timed_wall_s": wall_timed,
+          "phase_wall_s": {k: {"s": v[0], "calls": v[1]} for k, v in phases.items()},
+          "dia_launches_one_sweep": k4,
+          "profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
+          "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+          "kernel_count": sum(e.count for e in kernels),
+          "top_kernels_ms": [[e.key[:70], e.count, e.self_device_time_total / 1e3]
+                             for e in top]})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -460,18 +875,30 @@ def main(argv=None):
         rows.append(phase_k1(torch, panel_lu, dev))
     if "k2" in phases:
         rows.append(phase_k2(torch, schur_kernel, dev))
+    if "k3" in phases:
+        rows.append(phase_k3(torch, ft, dev))
+    if "k4" in phases:
+        rows.append(phase_k4(torch, dev))
     if "small" in phases:
         phase_small(torch, ft, dev)
-    launches = None
+    launches = {}
     if "main" in phases:
         torch.cuda.reset_peak_memory_stats(dev)
         launches = phase_main(torch, ft, dev)
     if "profile" in phases:
         phase_profile(torch, ft, dev)
+    problem = None
+    if "sparse" in phases:
+        launches["dia_spmm"], problem = phase_sparse(torch, ft, dev)
+    if "sparse_profile" in phases:
+        if problem is None:
+            ap.error("sparse_profile reuses the hierarchy of the sparse phase")
+        phase_sparse_profile(torch, ft, dev, problem)
     if phases != set(PHASES):
         return 0
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    for row in rows:  # cmatmul carries its count from the k3 phase's dense solve
+        row.setdefault("launches", launches.get(row["name"]))
+        require(row["launches"] > 0, f"{row['name']}: not launched on its path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})

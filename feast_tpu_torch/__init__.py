@@ -1,12 +1,16 @@
 """feast_tpu_torch: the PyTorch / CUDA port of feast_tpu.
 
 A second package beside the JAX one (`feast_tpu/`, the unchanged
-reference).  It imports torch and never jax or feast_tpu.  This first
-slice holds the dense mixed-precision FEAST path: `feast`, `gen_feast`
-and `feast_compiled`, with their LU, QR and eig building blocks, and two
-kernels written by hand for Hopper (sm_90a) in `csrc/`: the panel LU of
-the complex64 node factorizations and the one-launch complex Schur
-decomposition of the reduced eigenproblem.
+reference).  It imports torch and never jax or feast_tpu.  It holds the
+dense mixed-precision FEAST path (`feast`, `gen_feast`, `feast_compiled`,
+with their LU, QR and eig building blocks) and the sparse iterative path
+(`feast_iterative`, `ifeast`: DIA / CSR operators, batched Krylov solvers,
+the smoothed-aggregation AMG preconditioner), and four kernels written by
+hand for Hopper (sm_90a) in `csrc/`: the panel LU of the complex64 node
+factorizations, the one-launch complex Schur decomposition of the reduced
+eigenproblem, the fp32-accurate complex64 matrix product behind
+`cx.set_gemm_backend("cuda")`, and the complex64 DIA sparse product of the
+AMG V-cycle.
 
 Entry points take `device=` (default "cuda") and raise when CUDA is
 requested but absent.  Importing the package turns TF32 off for CUDA
@@ -19,4 +23,5 @@ from .contour import (Contour, circular_contour_gauss,
                       elliptical_contour_trapezoidal, in_contour,
                       rational_func, rectangular_contour_gauss,
                       rectangular_contour_trapezoidal, zolotarev_contour)
-from .solvers import FeastResult, dual_gen_feast, feast, feast_compiled, gen_feast
+from .solvers import (FeastResult, dual_gen_feast, feast, feast_compiled,
+                      feast_iterative, gen_feast, ifeast)

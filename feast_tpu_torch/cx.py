@@ -117,3 +117,39 @@ def normalize_cols(a: torch.Tensor) -> torch.Tensor:
 def scale_cols(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """a @ diag(s)."""
     return a * s.unsqueeze(-2)
+
+
+_GEMM_BACKEND = "torch"
+
+
+def set_gemm_backend(name: str):
+    """Select the complex64 matrix product behind `cmatmul`: "torch" (the
+    default: `a @ b`) or "cuda" (the hand-written Hopper kernel of
+    ops/cmatmul_kernel.py).  Other dtypes always take `a @ b`.  With "cuda"
+    a complex64 product on CPU tensors raises: nothing falls back."""
+    global _GEMM_BACKEND
+    if name not in ("torch", "cuda"):
+        raise ValueError(f"unknown gemm backend {name!r}")
+    _GEMM_BACKEND = name
+
+
+def cmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over broadcasting batch dims, through the selected backend."""
+    if (_GEMM_BACKEND == "cuda" and a.dtype == torch.complex64
+            and b.dtype == torch.complex64):
+        if not (a.is_cuda and b.is_cuda):
+            raise RuntimeError('gemm backend "cuda" needs CUDA tensors; the '
+                               "plain product is backend \"torch\"")
+        from .ops import cmatmul_kernel
+
+        return cmatmul_kernel.cmatmul(a, b)
+    return a @ b
+
+
+def _cmatmul_planes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the cmatmul kernel: the same four real products,
+    Cr = Ar Br - Ai Bi and Ci = Ar Bi + Ai Br, as matmuls on the planes in
+    the planes' precision (fp32 for complex64; TF32 is off, see _device)."""
+    ar, ai = a.real, a.imag
+    br, bi = b.real, b.imag
+    return torch.complex(ar @ br - ai @ bi, ar @ bi + ai @ br)

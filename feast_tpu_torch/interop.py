@@ -4,8 +4,11 @@ The JAX package holds complex data as `CX` (re, im) pairs and contours as
 its own `Contour`.  These helpers take either as plain host data (numpy
 arrays, or anything `np.asarray` accepts) so the port never imports JAX:
 a `CX` is a 2-tuple, and a contour is read through its `nodes`, `weights`,
-`kind` and `params` attributes.  With them both packages solve the same
-problem from the same seeded inputs.
+`kind` and `params` attributes.  Sparse operators (`CSR`, `DIA`, `STRETCH`,
+`STRETCHT`) and an `AMG` hierarchy are read the same way, by class name and
+attributes, so both packages can be fed one hierarchy; Krylov warm starts
+are (nodes, n, m0) pairs and go through `tensor_from_pair`.  With them
+both packages solve the same problem from the same seeded inputs.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import numpy as np
 import torch
 
 from . import contour as ct
+from .ops import amg as amgmod
+from .ops import sparse as spmod
 
 
 def tensor_from_pair(pair, device="cpu", dtype=None) -> torch.Tensor:
@@ -36,3 +41,35 @@ def contour_from(contour) -> ct.Contour:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """Tensor on any device -> host numpy array."""
     return t.detach().cpu().numpy()
+
+
+def operator_from(op, device="cpu", dtype=None):
+    """A JAX-side CSR / DIA / STRETCH / STRETCHT operator -> the port's."""
+    kind = type(op).__name__
+    if kind == "STRETCHT":
+        return spmod.STRETCHT(operator_from(op.P, device, dtype))
+    data = tensor_from_pair(op.data, device, dtype)
+    if kind == "DIA":
+        return spmod.DIA(data, op.offsets, op.shape)
+    if kind == "STRETCH":
+        return spmod.STRETCH(data, op.offsets, op.stride, op.shape)
+    if kind == "CSR":
+        def ids(a):
+            return torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
+
+        return spmod.CSR(data, ids(op.indices), ids(op.row_ids), op.shape)
+    raise NotImplementedError(f"interop: no counterpart for operator {kind}")
+
+
+def amg_from(amg, device="cpu", dtype=None) -> amgmod.AMG:
+    """A JAX-side AMG hierarchy (levels, Ac, Bc) -> the port's."""
+    levels = tuple(
+        amgmod.AMGLevel(operator_from(L.A_op, device, dtype),
+                        operator_from(L.B_op, device, dtype),
+                        tensor_from_pair(L.dA, device, dtype),
+                        tensor_from_pair(L.dB, device, dtype),
+                        operator_from(L.P, device, dtype),
+                        operator_from(L.R, device, dtype))
+        for L in amg.levels)
+    return amgmod.AMG(levels, tensor_from_pair(amg.Ac, device, dtype),
+                      tensor_from_pair(amg.Bc, device, dtype))

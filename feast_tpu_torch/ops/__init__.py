@@ -1,2 +1,3 @@
-"""Dense kernels of the port: LU (with the panel kernel), QR, eig (with the
-Schur kernel)."""
+"""Building blocks of the port: dense LU (with the panel kernel), QR, eig
+(with the Schur kernel), the complex64 matrix-product kernel, sparse
+operators (with the DIA kernel), Krylov solvers, AMG and reordering."""

@@ -182,7 +182,7 @@ def lu_factor(A: torch.Tensor, block: int = 0):
         if right is not None:
             U12 = _unit_lower_solve_small(panel[:, :b, :b], right[:, :b])
             A3[:, j:j + b, j + b:] = U12
-            A3[:, j + b:, j + b:] = right[:, b:] - panel[:, b:, :b] @ U12
+            A3[:, j + b:, j + b:] = right[:, b:] - cx.cmatmul(panel[:, b:, :b], U12)
     return A3.reshape(batch + (n, n)), perm.reshape(batch + (n,))
 
 
@@ -206,9 +206,9 @@ def lu_solve(LU: torch.Tensor, perm: torch.Tensor, B: torch.Tensor,
         b = min(block, n - j)
         Xj = X[..., j:j + b, :]
         if j > 0:
-            Xj = Xj - LU[..., j:j + b, :j] @ X[..., :j, :]
+            Xj = Xj - cx.cmatmul(LU[..., j:j + b, :j], X[..., :j, :])
         if dinv is not None:
-            Xd = dinv[0][..., j // block, :b, :b] @ Xj
+            Xd = cx.cmatmul(dinv[0][..., j // block, :b, :b], Xj)
         else:
             Xd = _unit_lower_solve_small(LU[..., j:j + b, j:j + b], Xj)
         X[..., j:j + b, :] = Xd
@@ -216,9 +216,9 @@ def lu_solve(LU: torch.Tensor, perm: torch.Tensor, B: torch.Tensor,
         b = min(block, n - j)
         Xj = X[..., j:j + b, :]
         if j + b < n:
-            Xj = Xj - LU[..., j:j + b, j + b:] @ X[..., j + b:, :]
+            Xj = Xj - cx.cmatmul(LU[..., j:j + b, j + b:], X[..., j + b:, :])
         if dinv is not None:
-            Xd = dinv[1][..., j // block, :b, :b] @ Xj
+            Xd = cx.cmatmul(dinv[1][..., j // block, :b, :b], Xj)
         else:
             Xd = _upper_solve_small(LU[..., j:j + b, j:j + b], Xj)
         X[..., j:j + b, :] = Xd

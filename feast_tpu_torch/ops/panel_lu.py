@@ -152,7 +152,7 @@ def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor):
         perm = torch.gather(perm, 1, pb)
         if e < n:
             A3[:, j:, e:] = torch.gather(A3[:, j:, e:], 1, idx.expand(-1, -1, n - e))
-            U12 = invL @ A3[:, j:e, e:]
+            U12 = cx.cmatmul(invL, A3[:, j:e, e:])
             A3[:, j:e, e:] = U12
-            A3[:, e:, e:] -= A3[:, e:, j:e] @ U12
+            A3[:, e:, e:] -= cx.cmatmul(A3[:, e:, j:e], U12)
     return A3.reshape(batch + (n, n)), perm.reshape(batch + (n,))

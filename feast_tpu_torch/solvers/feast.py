@@ -45,6 +45,9 @@ class FeastResult(NamedTuple):
     inside: torch.Tensor   # (m0,) bool
     n_iter: int
     converged: bool
+    Q: Optional[torch.Tensor] = None     # final moment subspace (keep_q)
+    n_sweeps: int = 0                    # node-solve sweeps (feast_iterative)
+    warm: Optional[torch.Tensor] = None  # (nodes, n, m0) Krylov warm starts
 
     def filtered(self):
         """Host numpy (lam, X, res) restricted to the contour."""

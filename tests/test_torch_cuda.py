@@ -12,7 +12,9 @@ import pytest
 import torch
 
 import feast_tpu_torch as ft
-from feast_tpu_torch.ops import lu, panel_lu, schur_kernel
+from feast_tpu_torch import cx
+from feast_tpu_torch.ops import (cmatmul_kernel, dia_kernel, lu, panel_lu,
+                                 schur_kernel, sparse)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +78,119 @@ def test_feast_on_card_golden_and_kernel_use(dev):
     assert res.converged and r.max() < 1e-12
     np.testing.assert_allclose(np.sort(lam.real), [1.0, 2.0, 3.0], atol=1e-10)
     assert schur_kernel.launches > before
+
+
+@pytest.mark.parametrize("batch,M,K,N", [((), 256, 256, 256), ((), 300, 130, 384),
+                                         ((3,), 70, 33, 129)])
+def test_cmatmul_kernel_matches_plain(dev, batch, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M)
+    a = torch.randn(batch + (M, K), dtype=torch.complex64, device=dev, generator=g)
+    b = torch.randn(batch + (K, N), dtype=torch.complex64, device=dev, generator=g)
+    before = cmatmul_kernel.launches
+    got = cmatmul_kernel.cmatmul(a, b)
+    assert cmatmul_kernel.launches == before + 1
+    # fp32 sums over K in another order than the library's matmuls
+    assert float((got - cx._cmatmul_planes(a, b)).abs().max()) < 1e-3 * np.sqrt(K)
+    # slices of a larger matrix and an operand shared across the batch
+    big = torch.randn((2, 200, 200), dtype=torch.complex64, device=dev, generator=g)
+    sl, shared = big[:, 40:, 8:72], big[0, :64, 100:]
+    ref = cx._cmatmul_planes(sl, shared)
+    assert float((cmatmul_kernel.cmatmul(sl, shared) - ref).abs().max()) < 1e-3 * 8
+    cx.set_gemm_backend("cuda")
+    try:
+        assert float((cx.cmatmul(sl, shared) - ref).abs().max()) < 1e-3 * 8
+        d = a.to(torch.complex128)
+        assert torch.equal(cx.cmatmul(d, d.mH), d @ d.mH)    # complex128: library
+    finally:
+        cx.set_gemm_backend("torch")
+
+
+@pytest.mark.parametrize("offs,n,m", [((-1, 0, 1), 700, 16), ((-32, -1, 0, 1, 32), 512, 8),
+                                      ((2, 5), 300, 16), ((-7, -3), 300, 16)])
+def test_dia_kernel_matches_plain(dev, offs, n, m):
+    g = torch.Generator(device=dev).manual_seed(n + m)
+    data = torch.randn((3, len(offs), n), dtype=torch.complex64, device=dev, generator=g)
+    X = torch.randn((3, n, m), dtype=torch.complex64, device=dev, generator=g)
+    before = dia_kernel.launches
+    for d, x in ((data, X), (data[0], X), (data, X[0]), (data[1], X[2])):
+        want = dia_kernel.dia_matvec_plain(d, offs, x)
+        got = dia_kernel.dia_matvec(d, offs, x)
+        assert got.shape == want.shape
+        # same sums in the same order; fused multiply-adds against rounded products
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert dia_kernel.launches == before + 4
+    A = sparse.DIA(data[0], offs, (n, n))
+    assert float((A.matvec(X[0]) - A._matvec_torch(X[0])).abs().max()) < 1e-4
+    assert dia_kernel.launches == before + 5            # the default on the card
+    sparse.set_spmm_backend("torch")
+    try:
+        A.matvec(X[0])
+        assert dia_kernel.launches == before + 5
+    finally:
+        sparse.set_spmm_backend("cuda")
+    with pytest.raises(ValueError):                      # complex128 is not the kernel's
+        dia_kernel.dia_matvec(data.to(torch.complex128), offs, X.to(torch.complex128))
+
+
+def test_backends_reject_unknown_names_and_cpu_tensors():
+    """Needs no card: an unknown backend name raises ValueError, and the
+    opt-in gemm backend "cuda" on complex64 CPU tensors raises instead of
+    falling back (the JAX package's "pallas" backends fall back silently
+    off the TPU).  The spmm backend has two values and "cuda" is its default:
+    the kernel for tensors on the card, the plain product for CPU tensors."""
+    with pytest.raises(ValueError):
+        sparse.set_spmm_backend("nope")
+    with pytest.raises(ValueError):
+        cx.set_gemm_backend("nope")
+    with pytest.raises(ValueError):
+        sparse.set_spmm_backend(None)
+    rng = np.random.default_rng(8)
+    a = torch.as_tensor(rng.standard_normal((16, 16)) + 0j, dtype=torch.complex64)
+    A = sparse.DIA(torch.as_tensor(rng.standard_normal((2, 16)) + 0j, dtype=torch.complex64),
+                   (0, 1), (16, 16))
+    ref_mm, ref_mv = cx.cmatmul(a, a), A.matvec(a)       # defaults: plain on the CPU
+    cx.set_gemm_backend("cuda")
+    sparse.set_spmm_backend("torch")
+    try:
+        with pytest.raises(RuntimeError):
+            cx.cmatmul(a, a)
+        assert torch.equal(A.matvec(a), ref_mv)
+        # other dtypes are not the kernels' and keep the plain product
+        d = a.to(torch.complex128)
+        assert torch.equal(cx.cmatmul(d, d), d @ d)
+        A128 = sparse.DIA(A.data.to(torch.complex128), A.offsets, A.shape)
+        assert torch.allclose(A128.matvec(d), ref_mv.to(torch.complex128), atol=1e-6)
+    finally:
+        cx.set_gemm_backend("torch")
+        sparse.set_spmm_backend("cuda")
+    assert torch.equal(cx.cmatmul(a, a), ref_mm) and torch.equal(A.matvec(a), ref_mv)
+
+
+def test_feast_iterative_on_card_launches_dia_kernel(dev):
+    """The sparse slice at N = 40: AMG with a complex64 V-cycle on the card."""
+    import scipy.sparse as sp
+
+    N = 40
+    T1 = sp.diags([np.full(N, 2.0), -np.ones(N - 1), -np.ones(N - 1)], [0, 1, -1], format="csr")
+    M1 = sp.diags([np.full(N, 4 / 6), np.full(N - 1, 1 / 6), np.full(N - 1, 1 / 6)],
+                  [0, 1, -1], format="csr")
+    I = sp.identity(N, format="csr")
+    K = (sp.kron(T1, I) + sp.kron(I, T1)).tocsr().astype(np.complex128)
+    B = sp.kron(M1, M1).tocsr().astype(np.complex128)
+    k = np.arange(1, N + 1)
+    t, m = 2 - 2 * np.cos(k * np.pi / (N + 1)), (2 + np.cos(k * np.pi / (N + 1))) / 3
+    lam = np.sort(((t[:, None] + t[None, :]) / (m[:, None] * m[None, :])).ravel())
+    c, r = complex((lam[0] + lam[4]) / 2), float((lam[4] - lam[0]) * 0.75)
+    rng = np.random.default_rng(0)
+    X0 = rng.standard_normal((N * N, 8)) + 1j * rng.standard_normal((N * N, 8))
+    before = dia_kernel.launches
+    res = ft.feast_iterative(K, B, X0, c=c, r=r, nodes=8, iters=8, tol=1e-10,
+                             precondition="amg", solver="bicgstab_rr", solve_tol=1e-9,
+                             solve_iters=120, device=dev,
+                             amg_opts={"dtype": torch.float32, "max_coarse": 100})
+    lamf, X, _ = res.filtered()
+    exact = lam[np.abs(lam - c) <= r]
+    assert res.converged and len(lamf) == len(exact)
+    np.testing.assert_allclose(np.sort(lamf.real), exact, rtol=1e-9)
+    assert np.linalg.norm(K @ X - (B @ X) * lamf[None, :], axis=0).max() < 1e-10
+    assert dia_kernel.launches > before
