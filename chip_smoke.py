@@ -6,14 +6,17 @@
 
 Phases, each printing one JSON line:
   build   compile csrc/*.cu for sm_90a (one nvcc per source, in parallel)
-  k1      the panel-LU kernel against its plain PyTorch version: 16 slabs of
-          (4096, 128) complex64 at j0 = 0 and 1920; whole factors at n = 1024
-          and 4096 (16 nodes); timings over 8 panel positions of an n = 4096
-          factor, with torch.linalg.lu_factor as a library yardstick
+  k1      the panel-LU cluster kernel: its launch plan (cluster size, sub-panel
+          width, clusters that fit) against the host mirror; bit for bit
+          against its plain PyTorch version on 16 slabs of (4096, 128)
+          complex64 at j0 = 0 and 1920; whole factors at n = 1024 and 4096
+          (16 nodes); timings over 8 panel positions of an n = 4096 factor,
+          with torch.linalg.lu_factor as a library yardstick
   k2      the Schur kernel against its plain version at n = 2, 48, 128, with
           torch.linalg.eig as a yardstick
-  k3      the complex64 matrix-product kernel against its plain version (four
-          real fp32 matmuls on the planes) at (256, 256, 256), (300, 130, 384)
+  k3      the complex64 tensor-core (3xTF32) matrix-product kernel against its
+          plain version (three real fp32 matmuls on the planes, Karatsuba) and
+          complex128 at (256, 256, 256), (300, 130, 384)
           and the dense path's shapes (3968 x 128 x 3968 and 128 x 128 x 48,
           batch 16), with torch.matmul on complex64 as a yardstick; then
           feast_compiled with cx.set_gemm_backend("cuda"): at n = 1024 against
@@ -65,6 +68,7 @@ PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "sparse",
           "sparse_profile")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32, outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # H100 SXM TF32 tensor cores, dense
 
 
 def emit(obj):
@@ -80,6 +84,27 @@ def bound_ms(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_summary(_build, name):
+    """nvcc -Xptxas -v lines (registers, shared memory, spills) of a source."""
+    return [ln.strip() for ln in _build.build_log(name).splitlines()
+            if "registers" in ln or "smem" in ln or "spill" in ln]
+
+
+def sass_count(_build, name, opcode):
+    """How many instructions of `opcode` the built library's SASS holds
+    (cuobjdump from the toolkit); None where the toolkit has no cuobjdump."""
+    import os
+    import shutil
+
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    exe = exe if os.path.exists(exe) else shutil.which("cuobjdump")
+    if exe is None:
+        return None
+    sass = subprocess.run([exe, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(opcode in ln for ln in sass.splitlines())
 
 
 def cuda_ms(fn, reps=1):
@@ -120,9 +145,22 @@ def panel_flops(n, b, j0):
 
 
 def phase_k1(torch, panel_lu, dev):
+    from feast_tpu_torch.kernels import _build
+
     B, n, b = 16, 4096, 128
     gen = torch.Generator(device=dev).manual_seed(1)
-    out = {"phase": "k1"}
+    out = {"phase": "k1", "ptxas": ptxas_summary(_build, "panel_lu")}
+    # the launch plan at the main path's panel positions: cluster size C,
+    # sub-panel width w, and the clusters of C = 1, 2, 4, 8 that fit at once
+    plans = {}
+    for j0 in (0, 1920, n - b):
+        plan = panel_lu.card_plan(n, b, j0, B)
+        fits = plan["fits"]
+        host = panel_lu.launch_plan(n, b, j0, B, lambda C, smem: fits[C])
+        require(host == {k: v for k, v in plan.items() if k != "fits"},
+                f"k1 j0={j0}: card plan {plan} differs from the host mirror {host}")
+        plans[f"j0_{j0}"] = plan
+    out["plan"] = plans
     worst = 0.0
     for j0 in (0, 1920):
         base = torch.randn((B, n, b), dtype=torch.complex64, device=dev, generator=gen)
@@ -130,6 +168,10 @@ def phase_k1(torch, panel_lu, dev):
         sp, pp, ip = panel_lu.panel_factor_plain(base.clone(), j0)
         torch.cuda.synchronize()
         require(torch.equal(pk, pp), f"k1 j0={j0}: perm differs from the plain version")
+        # every element takes the plain version's rounded operations in its
+        # order (no fused multiply-add): bit for bit
+        require(torch.equal(sk, sp), f"k1 j0={j0}: slab not bit-equal to the plain version")
+        require(torch.equal(ik, ip), f"k1 j0={j0}: invL11 not bit-equal to the plain version")
         err = float((sk - sp).abs().max())
         inv_err = float((ik - ip).abs().max())
         L11 = torch.tril(sk[:, j0:j0 + b, :], -1) + torch.eye(b, device=dev)
@@ -137,7 +179,7 @@ def phase_k1(torch, panel_lu, dev):
         require(err <= 1e-5 * float(sp.abs().max()), f"k1 j0={j0}: slab err {err}")
         require(eye_err < 1e-4, f"k1 j0={j0}: invL11 L11 - I = {eye_err}")
         out[f"slab_j0_{j0}"] = {"max_abs_err": err, "invL_err": inv_err,
-                                "invL_L11_minus_I": eye_err}
+                                "bit_equal": True, "invL_L11_minus_I": eye_err}
         worst = max(worst, err)
 
     for nn in (1024, 4096):
@@ -301,11 +343,27 @@ def phase_k2(torch, schur_kernel, dev):
 # K3: complex64 matrix product
 # ---------------------------------------------------------------------------
 
+def cmatmul_bound_ms(Bsz, M, K, N):
+    """Least time at fp32 accuracy: 6 M N K flop on the fp32 pipe, or
+    3 x 6 M N K on the TF32 tensor cores (3xTF32 Karatsuba), whichever is
+    less, against 8 (M K + K N + M N) bytes."""
+    flops = 6 * Bsz * M * N * K
+    t_ops = min(flops / PEAK_FP32_FLOPS, 3 * flops / PEAK_TF32_FLOPS) * 1e3
+    t_bytes = 8 * Bsz * (M * K + K * N + M * N) / PEAK_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_k3(torch, ft, dev):
+    from feast_tpu_torch.kernels import _build
+
     cmk = importlib.import_module("feast_tpu_torch.ops.cmatmul_kernel")
     cx = ft.cx
     gen = torch.Generator(device=dev).manual_seed(3)
-    out = {"phase": "k3"}
+    # wgmma compiles to HGMMA
+    tc = sass_count(_build, "cmatmul", "HGMMA")
+    require(tc is None or tc > 0, "k3: no tensor-core instruction in the kernel")
+    out = {"phase": "k3", "ptxas": ptxas_summary(_build, "cmatmul"),
+           "mma": cmk.MMA, "sass_tensor_core_instructions": tc}
     row = None
     # (batch, M, K, N); the last three are the dense path's, 16 nodes: a
     # diagonal-block solve and the first trailing updates of the n = 1024
@@ -321,23 +379,27 @@ def phase_k3(torch, ft, dev):
         err = float((got - want).abs().max())
         ref = (a[0].to(torch.complex128) @ b[0].to(torch.complex128))
         err64 = float((got[0] - ref).abs().max())
+        err64_plain = float((want[0] - ref).abs().max())
         # fp32 sums of K products of O(1) terms in another order than the
         # library's: the JAX test's bound, 1e-3 sqrt(K) absolute
         require(err <= 1e-3 * np.sqrt(K), f"k3 {M}x{K}x{N}: err {err} vs plain")
         require(err64 <= 1e-3 * np.sqrt(K), f"k3 {M}x{K}x{N}: err {err64} vs complex128")
+        # 3xTF32 is fp32-accurate: within twice the fp32 plain version's error
+        require(err64 <= 2 * err64_plain,
+                f"k3 {M}x{K}x{N}: complex128 err {err64} > 2 x plain {err64_plain}")
         reps = 3 if M * N * K * Bsz > 1e10 else 20
         k_ms = cuda_ms(lambda: cmk.cmatmul(a, b), reps)
         p_ms = cuda_ms(lambda: cx._cmatmul_planes(a, b), reps)
         l_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
-        # the function needs three real products per complex one (the
-        # Karatsuba form): 6 M N K operations; the kernel executes the
-        # four-product form, 8 M N K, which is the rate it reports
-        bms, bby = bound_ms(8 * Bsz * (M * K + K * N + M * N), 6 * Bsz * M * N * K)
+        bms, bby = cmatmul_bound_ms(Bsz, M, K, N)
+        require(k_ms >= bms, f"k3 {M}x{K}x{N}: {k_ms} ms is below the bound {bms} ms")
         out[f"{Bsz}x{M}x{K}x{N}"] = {
             "max_abs_err": err, "max_abs_err_vs_complex128": err64,
+            "plain_err_vs_complex128": err64_plain, "err_ratio": err64 / err64_plain,
             "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": bms, "bound_by": bby,
-            "executed_tflops": 8 * Bsz * M * N * K / k_ms / 1e9}
+            # nine TF32 products (3 per real product, 3 real per complex)
+            "tensor_tflops_executed": 18 * Bsz * M * N * K / k_ms / 1e9}
         if M == 3968:
             row = {"name": "cmatmul", "route": "cuda",
                    "source": "feast_tpu_torch/csrc/cmatmul.cu",
@@ -865,9 +927,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = _build.build()
     emit({"phase": "build", "wall_s": time.perf_counter() - t0, "per_source_s": built,
-          "ptxas": {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                           if "registers" in ln or "smem" in ln]
-                    for name in _build.SOURCE_FLAGS},
+          "ptxas": {name: ptxas_summary(_build, name) for name in _build.SOURCE_FLAGS},
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     rows = []

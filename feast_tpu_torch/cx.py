@@ -147,9 +147,13 @@ def cmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _cmatmul_planes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of the cmatmul kernel: the same four real products,
-    Cr = Ar Br - Ai Bi and Ci = Ar Bi + Ai Br, as matmuls on the planes in
-    the planes' precision (fp32 for complex64; TF32 is off, see _device)."""
+    """Plain version of the cmatmul kernel: the same three real products
+    (Karatsuba, as the TPU kernel forms them), t1 = Ar Br, t2 = Ai Bi,
+    t3 = (Ar + Ai)(Br + Bi), Cr = t1 - t2, Ci = t3 - t1 - t2, as matmuls on
+    the planes in the planes' precision (fp32 for complex64; TF32 is off,
+    see _device)."""
     ar, ai = a.real, a.imag
     br, bi = b.real, b.imag
-    return torch.complex(ar @ br - ai @ bi, ar @ bi + ai @ br)
+    t1, t2 = ar @ br, ai @ bi
+    t3 = (ar + ai) @ (br + bi)
+    return torch.complex(t1 - t2, t3 - t1 - t2)

@@ -2,12 +2,14 @@
 `csrc/cmatmul.cu` behind `cx.cmatmul`'s "cuda" backend.
 
 Counterpart of `feast_tpu/ops/pallas_kernels.py` (`_cmatmul_pallas_padded`,
-launched by `cmatmul_pallas`): C = A B with fp32 accumulation.  The TPU
-kernel pads to tiles and takes 2-D operands only; this one bounds-checks
-ragged edges itself and takes leading batch dimensions that broadcast (the
-contour-node axis of the dense solvers).  Its plain version is
-`cx._cmatmul_planes`: the same four real products as fp32 matmuls on the
-planes.
+launched by `cmatmul_pallas`): C = A B at fp32 accuracy, three real products
+per complex one (Karatsuba), each on the TF32 tensor cores with its operands
+split into two TF32 halves (3xTF32, `wgmma` m64n64k8).  The TPU kernel pads
+to tiles and takes 2-D operands only; this one bounds-checks ragged edges
+itself, reads any 8-byte-aligned base and row stride, and takes leading batch
+dimensions that broadcast (the contour-node axis of the dense solvers).  Its
+plain version is `cx._cmatmul_planes`: the same three real products as fp32
+matmuls on the planes.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from ..kernels import _build
 
 # Launches of the CUDA kernel (plain-version calls do not count).
 launches = 0
+# the tensor-core instruction of csrc/cmatmul.cu
+MMA = "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32"
 
 _ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
              + (ctypes.c_longlong,) * 6 + (ctypes.c_void_p,))

@@ -11,6 +11,10 @@ taken before the first column) and inverted by Smith's reciprocal, the
 multipliers and the rank-1 update of the columns to the right; then the
 inverse of the unit-lower diagonal block L11.
 
+The kernel runs one thread-block cluster per slab; `launch_plan` mirrors
+its launch plan on the host (cluster size, sub-panel width, shared memory)
+and `card_plan` asks the built kernel for the plan it takes on this card.
+
 `lu_factor_panel` mirrors `lu_factor_pallas`: per panel one kernel call,
 the panel's row permutation applied to the other columns as one gather,
 U12 = invL11 @ A12 and the trailing update as matmuls.
@@ -32,7 +36,56 @@ launches = 0
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+_PLAN_ARGTYPES = (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 MAX_BLOCK = 128
+# the kernel's launch constants (csrc/panel_lu.cu)
+SMEM_CAP = 232448         # 227 KB: the most shared memory a block may use
+STATIC_RESERVE = 8192     # upper bound of the kernel's static shared memory
+CLUSTER_SIZES = (8, 7, 6, 5, 4, 3, 2, 1)
+
+
+def _plan_smem(n, b, j0, C, w, in_smem):
+    rows_per = -(-(n - j0) // C)
+    p1 = (rows_per * (w + 1) if in_smem else 0) + w * b + w * w
+    p2 = b * -(-b // C) + b * (b - 1) // 2
+    return 8 * max(p1, p2)
+
+
+def _plan_for(n, b, j0, C):
+    rows_per = -(-(n - j0) // C)
+    for w in (32, 16, 8, 4):
+        w = min(w, b)
+        smem = _plan_smem(n, b, j0, C, w, True)
+        if smem <= SMEM_CAP - STATIC_RESERVE:
+            return {"C": C, "w": w, "rows_per": rows_per, "in_smem": True, "smem": smem}
+    w = min(32, b)
+    return {"C": C, "w": w, "rows_per": rows_per, "in_smem": False,
+            "smem": _plan_smem(n, b, j0, C, w, False)}
+
+
+def launch_plan(n: int, b: int, j0: int, batch: int, clusters_fit) -> dict:
+    """The kernel's launch plan, as `csrc/panel_lu.cu::choose_plan` makes it:
+    the largest cluster size C <= 8 whose clusters hold the whole batch in
+    one wave (`clusters_fit(C, smem)`: how many clusters of C blocks with
+    `smem` dynamic shared bytes fit on the card at once), else C = 1.
+    Block r of a cluster owns rows [j0 + r R, j0 + (r+1) R) with
+    R = rows_per; sub-panels of w columns sit in shared memory where they
+    fit (in_smem), else in the slab."""
+    for C in CLUSTER_SIZES[:-1]:
+        plan = _plan_for(n, b, j0, C)
+        if clusters_fit(C, plan["smem"]) >= batch:
+            return plan
+    return _plan_for(n, b, j0, 1)
+
+
+def card_plan(n: int, b: int, j0: int, batch: int) -> dict:
+    """The plan the kernel takes on the current card, with the clusters of
+    C = 1, ..., 8 that fit at once (`fits`)."""
+    out = (ctypes.c_int * 13)()
+    fn = _build.function("panel_lu", "feast_panel_lu_plan", _PLAN_ARGTYPES)
+    _build.check(fn(n, b, j0, batch, ctypes.addressof(out)), "panel_lu plan")
+    return {"C": out[0], "w": out[1], "rows_per": out[2], "in_smem": bool(out[3]),
+            "smem": out[4], "fits": dict(zip(range(1, 9), out[5:13]))}
 
 
 def _check_slab(slab: torch.Tensor, j0: int):

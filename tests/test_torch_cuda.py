@@ -37,6 +37,58 @@ def test_panel_kernel_matches_plain(dev, j0):
     assert float((ik - ip).abs().max()) < 1e-5
 
 
+def _panel_equal(slab, j0):
+    sk, pk, ik = panel_lu.panel_factor(slab.clone(), j0)
+    sp, pp, ip = panel_lu.panel_factor_plain(slab.clone(), j0)
+    assert torch.equal(pk, pp)
+    assert torch.equal(sk, sp)
+    assert torch.equal(ik, ip)
+    return pk
+
+
+@pytest.mark.parametrize("n", [128, 1024, 4096, 8192])
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("where", ["top", "middle", "bottom"])
+def test_panel_cluster_kernel_bit_equal(dev, n, batch, where):
+    """The cluster kernel is bit for bit the plain version: same pivots, slab
+    and L11 inverse, on every slab height, batch and panel position."""
+    j0 = min({"top": 0, "middle": n // 2, "bottom": n - 128}[where], n - 128)
+    g = torch.Generator(device=dev).manual_seed(n + batch)
+    base = torch.randn((batch, n, 128), dtype=torch.complex64, device=dev, generator=g)
+    _panel_equal(base, j0)
+
+
+def test_panel_cluster_kernel_ties_and_zero_pivots(dev):
+    """Exact ties in |.|^2 across the row ranges of different blocks of a
+    cluster (the lowest index wins), an all-zero column and an all-zero slab
+    (the eps * max|slab| substitute)."""
+    n, b = 1024, 128
+    plan = panel_lu.card_plan(n, b, 0, 3)
+    assert plan["C"] > 1 and plan["rows_per"] < 700
+    rng = np.random.default_rng(7)
+    vals = rng.integers(-2, 3, (3, n, b)) + 1j * rng.integers(-2, 3, (3, n, b))
+    vals[0, :, 0] = 0.1
+    vals[0, 700, 0] = 3j            # |.|^2 = 9 in two blocks' ranges
+    vals[0, 100, 0] = -3
+    vals[1, :, 5] = 0               # a whole column of zeros: a zero pivot at k = 5
+    vals[2] = 0
+    slab = torch.as_tensor(vals, dtype=torch.complex64, device=dev)
+    perm = _panel_equal(slab, 0)
+    assert int(perm[0, 0]) == 100
+    # small-integer entries: many ties in every column, and the j0 > 0 case
+    _panel_equal(slab, 512)
+
+
+def test_panel_card_plan_matches_host_mirror(dev):
+    for n, j0, batch in ((4096, 0, 16), (4096, 3968, 16), (1024, 0, 3), (16384, 0, 16),
+                         (8192, 4096, 1), (4096, 0, 64)):
+        plan = panel_lu.card_plan(n, 128, j0, batch)
+        fits = plan.pop("fits")
+        host = panel_lu.launch_plan(n, 128, j0, batch, lambda C, smem: fits[C])
+        assert plan == host
+    assert panel_lu.card_plan(4096, 128, 0, 16)["C"] > 1
+
+
 def test_lu_factor_dispatches_to_panel_kernel(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     A = torch.randn((3, 256, 256), dtype=torch.complex64, device=dev, generator=g)
@@ -103,6 +155,53 @@ def test_cmatmul_kernel_matches_plain(dev, batch, M, K, N):
         assert torch.equal(cx.cmatmul(d, d.mH), d @ d.mH)    # complex128: library
     finally:
         cx.set_gemm_backend("torch")
+
+
+def _cmatmul_vs_complex128(a, b):
+    """Kernel and plain errors against complex128; the kernel within 1e-3
+    sqrt(K) of the plain version and within 2x its complex128 error."""
+    K = a.shape[-1]
+    before = cmatmul_kernel.launches
+    got = cmatmul_kernel.cmatmul(a, b)
+    assert cmatmul_kernel.launches == before + (got.numel() > 0)
+    want = cx._cmatmul_planes(a, b)
+    ref = a.to(torch.complex128) @ b.to(torch.complex128)
+    assert got.shape == ref.shape
+    err_k = float((got.to(torch.complex128) - ref).abs().max()) if got.numel() else 0.0
+    err_p = float((want.to(torch.complex128) - ref).abs().max()) if got.numel() else 0.0
+    assert float((got - want).abs().max() if got.numel() else 0.0) <= 1e-3 * max(K, 1) ** 0.5
+    assert err_k <= 2 * err_p + 1e-7, (err_k, err_p)
+    return got
+
+
+@pytest.mark.parametrize("batch,M,K,N", [((), 70, 33, 129), ((3,), 300, 130, 384),
+                                         ((2,), 129, 200, 65), ((), 1, 17, 1),
+                                         ((16,), 256, 128, 48)])
+def test_cmatmul_tensor_core_kernel_accuracy(dev, batch, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    a = torch.randn(batch + (M, K), dtype=torch.complex64, device=dev, generator=g)
+    b = torch.randn(batch + (K, N), dtype=torch.complex64, device=dev, generator=g)
+    _cmatmul_vs_complex128(a, b)
+
+
+def test_cmatmul_kernel_strides_sharing_alignment_and_empty_k(dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    big = torch.randn((2, 300, 300), dtype=torch.complex64, device=dev, generator=g)
+    # a row-strided slice, as lu_factor_panel's A3[:, e:, j:e]
+    _cmatmul_vs_complex128(big[:, 140:, 12:140], big[:, 12:140, 140:])
+    # operands shared across the batch (batch stride 0), either side
+    _cmatmul_vs_complex128(big[:, :100, :64], big[0, :64, 7:90])
+    _cmatmul_vs_complex128(big[0, :77, :64], big[:, :64, :90])
+    # a base that is 8 but not 16 bytes aligned, and an odd row stride
+    flat = big.reshape(-1)
+    a = flat[1:1 + 97 * 61].view(97, 61)
+    assert a.data_ptr() % 16 == 8
+    _cmatmul_vs_complex128(a, flat[3:3 + 61 * 299].view(61, 299)[:, :45])
+    odd = big[0, :, :299][:, 1:]                       # row stride 300, base offset 1
+    _cmatmul_vs_complex128(odd[:50, :33], odd[:33, :70])
+    # K = 0: zeros, as the library's product
+    z = _cmatmul_vs_complex128(big[:, :5, :0], big[:, :0, :7])
+    assert z.shape == (2, 5, 7) and not bool(z.abs().max())
 
 
 @pytest.mark.parametrize("offs,n,m", [((-1, 0, 1), 700, 16), ((-32, -1, 0, 1, 32), 512, 8),
