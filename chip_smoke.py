@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                 # all phases, needs one CUDA card
     python3 chip_smoke.py --phases k3,k4  # a subset; no kernels/ok lines
+    python3 chip_smoke.py --phases k2,k4 --baseline DIR
+                                          # K2 and K4 of the checkout in DIR
+                                          # timed beside these, in turns
 
 Phases, each printing one JSON line:
   build   compile csrc/*.cu for sm_90a (one nvcc per source, in parallel)
@@ -12,8 +15,11 @@ Phases, each printing one JSON line:
           complex64 at j0 = 0 and 1920; whole factors at n = 1024 and 4096
           (16 nodes); timings over 8 panel positions of an n = 4096 factor,
           with torch.linalg.lu_factor as a library yardstick
-  k2      the Schur kernel against its plain version at n = 2, 48, 128, with
-          torch.linalg.eig as a yardstick
+  k2      the Schur kernel against its plain version at n = 2, 8 (the sparse
+          path's m0), 48 (the dense path's) and 128: invariants, sweeps and
+          rotation steps, ptxas registers, with torch.linalg.eig as a
+          yardstick; then its time and invariants at n = 64, 96, 112 and at
+          entries scaled by 1e-20 and 1e18
   k3      the complex64 tensor-core (3xTF32) matrix-product kernel against its
           plain version (three real fp32 matmuls on the planes, Karatsuba) and
           complex128 at (256, 256, 256), (300, 130, 384)
@@ -23,9 +29,11 @@ Phases, each printing one JSON line:
           LAPACK eigenvalues, and on the main path's problem (n = 4096), whose
           factor gives the kernel the timed shapes, counting its launches
   k4      the DIA sparse-product kernel against its plain version (shifted
-          slices) on four small band structures and at the level-0 shape of
-          the sparse path (9 diagonals of the 1000 x 1000 grid pencil,
-          n = 1e6, m = 8, 8 nodes), with torch.sparse CSR as a yardstick
+          slices) on four small band structures, at the two DIA levels of the
+          sparse path (9 diagonals of the 1000 x 1000 grid pencil, n = 1e6;
+          21 diagonals, n = 167,000; m = 8, 8 nodes) and at m = 3 on a ragged
+          n; ptxas registers, GB/s and bound, with torch.sparse CSR as a
+          yardstick
   small   feast_compiled on the bench problem at n = 512 against LAPACK
           eigenvalues (numpy)
   main    feast_compiled(mixed_prec=True) on bench.py's problem (n = 4096,
@@ -40,14 +48,15 @@ Phases, each printing one JSON line:
   sparse  feast_iterative on the 1M-dof generalized grid pencil (K = T (+) T
           5-point stiffness, B = M (x) M 9-point mass, N = 1000, lowest slice,
           m0 = 8, 8 nodes, AMG on strength aggregates with a complex64 V-cycle,
-          bicgstab_rr): the DIA
-          kernel's launches counted over the solve, eigenvalues against the
+          bicgstab_rr): the DIA kernel's launches counted over the solve and
+          by level (each DIA level's offsets printed), eigenvalues against the
           exact separable spectrum, residuals recomputed on the host with
           scipy in float64; and a Jacobi-preconditioned complex64 Krylov
           solve at N = 200 that launches the DIA kernel outside AMG
   sparse_profile  one more sweep of the sparse path with per-phase host walls
           (Rayleigh-Ritz, node solves, V-cycle share), and one under
-          torch.profiler: device busy share, top kernels
+          torch.profiler: device busy share, the DIA kernel's device time and
+          share, top kernels
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failed check raises, and the script exits non-zero without the ok line.
 The script never imports JAX or the JAX package.
@@ -290,43 +299,76 @@ def _match_err(a, b):
     return float(D[r, c].max())
 
 
-def phase_k2(torch, schur_kernel, dev):
-    out = {"phase": "k2"}
+def schur_checks(torch, what, A, T, Z, Y, X, lam_ref):
+    """The Schur kernel's invariants (held in complex128, so that entries far
+    from 1 neither overflow nor underflow the norms); raises if one fails."""
+    A, T, Z, Y, X = (M.to(torch.complex128) for M in (A, T, Z, Y, X))
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    lam_err = _match_err(torch.diagonal(T).cpu().numpy(), np.asarray(lam_ref))
+    checks = {
+        "eig_match_err": lam_err,
+        "eig_match_err_rel": lam_err / max(float(np.abs(lam_ref).max()), 1e-300),
+        "AZ_minus_ZT_rel": float(torch.linalg.norm(A @ Z - Z @ T) / torch.linalg.norm(A)),
+        "ZhZ_minus_I": float((Z.mH @ Z - eye).abs().max()),
+        "lower_max": float(torch.tril(T, -1).abs().max()),
+        "XY_minus_I": float((X @ Y - eye).abs().max()),
+    }
+    tol = 5e-7 * max(n, 8)  # ~ n eps32: rotations accumulate rounding
+    require(checks["eig_match_err_rel"] < 1e-4, f"{what}: eigenvalues {checks}")
+    require(checks["AZ_minus_ZT_rel"] < tol, f"{what}: AZ - ZT {checks}")
+    require(checks["ZhZ_minus_I"] < tol, f"{what}: Z unitary {checks}")
+    require(checks["lower_max"] == 0.0, f"{what}: T not triangular {checks}")
+    require(checks["XY_minus_I"] < 1e-3, f"{what}: XY - I {checks}")
+    return checks
+
+
+def in_turns(new_fn, base_fn, reps):
+    """Device ms of new_fn, and of base_fn (an earlier checkout's kernel)
+    when given, timed in turns base, new, new, base; returns (new mean,
+    [base ms, base ms] or None)."""
+    new_fn()
+    if base_fn is None:
+        return cuda_ms(new_fn, reps), None
+    base_fn()
+    b1 = cuda_ms(base_fn, reps)
+    n1, n2 = cuda_ms(new_fn, reps), cuda_ms(new_fn, reps)
+    return (n1 + n2) / 2, [b1, cuda_ms(base_fn, reps)]
+
+
+def phase_k2(torch, schur_kernel, dev, base=None):
+    from feast_tpu_torch.kernels import _build
+
+    out = {"phase": "k2", "ptxas": ptxas_summary(_build, "schur")}
     row = None
     gen = torch.Generator(device=dev).manual_seed(2)
-    for n in (2, 48, 128):
-        A = torch.randn((n, n), dtype=torch.complex64, device=dev, generator=gen)
+    # drawn in this order so that n = 2, 48, 128 keep their earlier inputs
+    mats = {n: torch.randn((n, n), dtype=torch.complex64, device=dev, generator=gen)
+            for n in (2, 48, 128, 8)}
+    for n in (2, 8, 48, 128):
+        A = mats[n]
         T, Z, Y, X, st = schur_kernel.schur(A, want_y=True, return_stats=True)
         Tp, Zp, Yp, Xp, stp = schur_kernel.schur_plain(A, want_y=True, return_stats=True)
         torch.cuda.synchronize()
-        nrm = float(torch.linalg.norm(A))
-        eye = torch.eye(n, dtype=A.dtype, device=dev)
-        lam_k = torch.diagonal(T).cpu().numpy()
         lam_p = torch.diagonal(Tp).cpu().numpy()
-        lam_err = _match_err(lam_k, lam_p)
-        checks = {
-            "eig_match_err_rel": lam_err / max(float(np.abs(lam_p).max()), 1e-30),
-            "AZ_minus_ZT_rel": float(torch.linalg.norm(A @ Z - Z @ T)) / nrm,
-            "ZhZ_minus_I": float((Z.mH @ Z - eye).abs().max()),
-            "lower_max": float(torch.tril(T, -1).abs().max()),
-            "XY_minus_I": float((X @ Y - eye).abs().max()),
-            "sweeps": int(st[0]), "plain_sweeps": int(stp[0]),
-        }
-        tol = 5e-7 * max(n, 8)  # ~ n eps32: rotations accumulate rounding
-        require(checks["eig_match_err_rel"] < 1e-4, f"k2 n={n}: eigenvalues {checks}")
-        require(checks["AZ_minus_ZT_rel"] < tol, f"k2 n={n}: AZ - ZT {checks}")
-        require(checks["ZhZ_minus_I"] < tol, f"k2 n={n}: Z unitary {checks}")
-        require(checks["lower_max"] == 0.0, f"k2 n={n}: T not triangular {checks}")
-        require(checks["XY_minus_I"] < 1e-3, f"k2 n={n}: XY - I {checks}")
+        checks = schur_checks(torch, f"k2 n={n}", A, T, Z, Y, X, lam_p)
+        lam_err = checks["eig_match_err"]
+        checks.update({"sweeps": int(st[0]), "work": int(st[1]),
+                       "plain_sweeps": int(stp[0]), "plain_work": int(stp[1])})
+        if n == 48:  # the one-block kernel took 122 sweeps on this input
+            require(abs(checks["sweeps"] - 122) <= 0.05 * 122,
+                    f"k2 n=48: {checks['sweeps']} sweeps, 122 +- 5% expected")
         reps = 20
-        k_ms = cuda_ms(lambda: schur_kernel.schur(A, want_y=True), reps)
+        base_fn = (lambda: base.schur(A, want_y=True)) if base is not None else None
+        k_ms, b_ms = in_turns(lambda: schur_kernel.schur(A, want_y=True), base_fn, reps)
         p_ms = cuda_ms(lambda: schur_kernel.schur_plain(A, want_y=True), 1)
         torch.linalg.eig(A)
         l_ms = cuda_ms(lambda: torch.linalg.eig(A), 5)
         nbytes = 5 * n * n * 8
         bms, bby = bound_ms(nbytes, schur_flops(n, int(st[1])))
-        checks.update({"kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                       "bound_ms": bms, "bound_by": bby})
+        checks.update({"kernel_ms": k_ms, "baseline_ms": b_ms, "plain_ms": p_ms,
+                       "library_ms": l_ms, "bound_ms": bms, "bound_by": bby,
+                       "ns_per_rotation_step": k_ms * 1e6 / max(int(st[1]), 1)})
         out[f"n{n}"] = checks
         if n == 48:  # the main path's shape (m0 = 48)
             row = {"name": "schur", "route": "cuda",
@@ -334,9 +376,29 @@ def phase_k2(torch, schur_kernel, dev):
                    "replaces": "feast_tpu/ops/pallas_eig.py:42",
                    "max_abs_err": lam_err, "ms": k_ms, "plain_ms": p_ms,
                    "bound_ms": bms, "bound_by": bby, "library_ms": l_ms}
+    # the rest of the supported range (m0 up to 128), against LAPACK's
+    # eigenvalues, timed beside the baseline: where one warp a matrix stands
+    # against the earlier kernel
+    for n in (64, 96, 112):
+        A = torch.randn((n, n), dtype=torch.complex64, device=dev, generator=gen)
+        T, Z, Y, X, st = schur_kernel.schur(A, want_y=True, return_stats=True)
+        lam_ref = np.linalg.eigvals(A.cpu().numpy().astype(np.complex128))
+        checks = schur_checks(torch, f"k2 n={n}", A, T, Z, Y, X, lam_ref)
+        base_fn = (lambda: base.schur(A, want_y=True)) if base is not None else None
+        k_ms, b_ms = in_turns(lambda: schur_kernel.schur(A, want_y=True), base_fn, 20)
+        out[f"n{n}"] = dict(checks, sweeps=int(st[0]), work=int(st[1]), kernel_ms=k_ms,
+                            baseline_ms=b_ms)
+    # entries far from 1 (the kernel scales A by a power of two first)
+    A = mats[48]
+    for scale in (1e-20, 1e18):
+        As = A * scale
+        T, Z, Y, X, st = schur_kernel.schur(As, want_y=True, return_stats=True)
+        lam_ref = np.linalg.eigvals(As.cpu().numpy().astype(np.complex128))
+        out[f"n48_scaled_{scale:g}"] = dict(
+            schur_checks(torch, f"k2 n=48 x {scale:g}", As, T, Z, Y, X, lam_ref),
+            sweeps=int(st[0]))
     emit(out)
     return row
-
 
 
 # ---------------------------------------------------------------------------
@@ -474,35 +536,49 @@ def _dia_to_sparse_csr(torch, data, offsets, ncols):
     return coo.to_sparse_csr()
 
 
-def phase_k4(torch, dev):
+# Diagonals of the second DIA level of the sparse path's AMG hierarchy
+# (N = 1000 grid pencil, strength aggregates: 167,000 rows), as the sparse
+# phase prints them under "levels"
+LEVEL1_OFFSETS = (-669, -668, -667, -336, -335, -334, -333, -332, -2, -1, 0, 1, 2,
+                  332, 333, 334, 335, 336, 667, 668, 669)
+
+
+def phase_k4(torch, dev, base=None):
+    from feast_tpu_torch.kernels import _build
+
     dk = importlib.import_module("feast_tpu_torch.ops.dia_kernel")
     gen = torch.Generator(device=dev).manual_seed(4)
-    out = {"phase": "k4"}
+    out = {"phase": "k4", "ptxas": ptxas_summary(_build, "dia_spmm")}
     row = None
-    cases = [((-1, 0, 1), 700, 16, 1), ((-32, -1, 0, 1, 32), 512, 8, 1),
-             ((2, 5), 300, 16, 1), ((-7, -3), 300, 16, 1),
-             (grid_offsets(1000), 1_000_000, 8, 8)]
-    for offs, n, m, Bsz in cases:
+    cases = [("small_tridiag", (-1, 0, 1), 700, 16, 1),
+             ("small_wide", (-32, -1, 0, 1, 32), 512, 8, 1),
+             ("small_upper", (2, 5), 300, 16, 1), ("small_lower", (-7, -3), 300, 16, 1),
+             ("level0", grid_offsets(1000), 1_000_000, 8, 8)]
+    cases.append(("level1", LEVEL1_OFFSETS, 167_000, 8, 8))
+    # odd m: rows of 24 bytes, so the 16-byte loads give way to 8-byte ones;
+    # n ragged against the 256-item blocks
+    cases.append(("m3_ragged", grid_offsets(500), 250_001, 3, 4))
+    for name, offs, n, m, Bsz in cases:
         data = torch.randn((Bsz, len(offs), n), dtype=torch.complex64, device=dev,
                            generator=gen)
         X = torch.randn((Bsz, n, m), dtype=torch.complex64, device=dev, generator=gen)
-        got = dk.dia_matvec(data, offs, X)
         want = dk.dia_matvec_plain(data, offs, X)
+        scale = float(want.abs().max())
+        got = dk.dia_matvec(data, offs, X)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        scale = float(want.abs().max())
         # both sum ndiag fp32 products per entry in the same order; the
         # kernel contracts multiply-adds, the plain version rounds each
         # product: 1e-5 of the largest entry
-        require(err <= 1e-5 * scale, f"k4 {offs} n={n}: err {err} (scale {scale})")
+        require(err <= 1e-5 * scale, f"k4 {name}: err {err} (scale {scale})")
         # one shared operator against batched X, as the unshifted products use it
         got1 = dk.dia_matvec(data[0], offs, X)
-        want1 = dk.dia_matvec_plain(data[0], offs, X)
-        err1 = float((got1 - want1).abs().max())
-        require(err1 <= 1e-5 * scale, f"k4 {offs} n={n}: shared-data err {err1}")
-        del got1, want1
+        err1 = float((got1 - dk.dia_matvec_plain(data[0], offs, X)).abs().max())
+        require(err1 <= 1e-5 * scale, f"k4 {name}: shared-data err {err1}")
+        del got, got1
         reps = 10
-        k_ms = cuda_ms(lambda: dk.dia_matvec(data, offs, X), reps)
+        base_fn = (lambda: base.dia_matvec(data, offs, X)) if base is not None else None
+        k_ms, b_ms = in_turns(lambda: dk.dia_matvec(data, offs, X), base_fn, reps)
         p_ms = cuda_ms(lambda: dk.dia_matvec_plain(data, offs, X), reps)
         try:  # the library's product of the same operators, one node at a time
             csr = [_dia_to_sparse_csr(torch, data[i], offs, n) for i in range(Bsz)]
@@ -517,17 +593,19 @@ def phase_k4(torch, dev):
         inrange = sum(min(n, n - off) - max(0, -off) for off in offs)
         nbytes = Bsz * 8 * (len(offs) * n + 2 * n * m)
         bms, bby = bound_ms(nbytes, 8 * Bsz * inrange * m)
-        out[f"n{n}_m{m}_b{Bsz}_d{len(offs)}"] = {
-            "max_abs_err": err, "scale": scale, "kernel_ms": k_ms, "plain_ms": p_ms,
+        out[name] = {
+            "offsets": list(offs), "n": n, "m": m, "batch": Bsz,
+            "max_abs_err": err, "scale": scale, "kernel_ms": k_ms,
+            "baseline_ms": b_ms, "plain_ms": p_ms,
             "library_ms": l_ms, "bound_ms": bms, "bound_by": bby,
-            "gbytes_per_s": nbytes / k_ms / 1e6}
-        if n == 1_000_000:
+            "gbytes_per_s": nbytes / k_ms / 1e6, "bound_share": bms / k_ms}
+        if name == "level0":
             row = {"name": "dia_spmm", "route": "cuda",
                    "source": "feast_tpu_torch/csrc/dia_spmm.cu",
                    "replaces": "feast_tpu/ops/pallas_kernels.py:108",
                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                    "bound_ms": bms, "bound_by": bby, "library_ms": l_ms}
-        del data, X, got, want
+        del data, X, want
     torch.cuda.empty_cache()
     emit(out)
     return row
@@ -798,11 +876,22 @@ def phase_sparse(torch, ft, dev, N=1000):
         iters_log.append(sol.iters.cpu().tolist())
         return sol
 
+    # K4 launches by the row count of the operator (one DIA level each)
+    per_level, dia_matvec = {}, dk.dia_matvec
+
+    def counted(data, *a, **k):
+        before = dk.launches
+        out = dia_matvec(data, *a, **k)
+        n_rows = int(data.shape[-1])
+        per_level[n_rows] = per_level.get(n_rows, 0) + dk.launches - before
+        return out
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     dk.launches = 0
     schur_kernel.launches = 0
-    with Patched((amgmod, "build_amg", timed_build), (krylov, "bicgstab_rr", logged_solver)):
+    with Patched((amgmod, "build_amg", timed_build), (krylov, "bicgstab_rr", logged_solver),
+                 (dk, "dia_matvec", counted)):
         t0 = time.perf_counter()
         res = ft.feast_iterative(K, B, X0, c=c, r=r, device=dev,
                                  amg_opts=sparse_amg_opts(torch), **SPARSE_KW)
@@ -821,8 +910,10 @@ def phase_sparse(torch, ft, dev, N=1000):
     require(relerr < 1e-9, f"sparse: eigenvalue relative error {relerr}")
     require(np.isfinite(host_res).all() and host_res.max() < 1e-10,
             f"sparse: host residual {host_res.max()}")
-    require(launches["dia_spmm"] > 0, "sparse: the DIA kernel was not launched")
     amg = kept["amg"]
+    dia_rows = [L.A_op.shape[0] for L in amg.levels if isinstance(L.A_op, spmod.DIA)]
+    require(launches["dia_spmm"] > 0 and all(per_level.get(r, 0) > 0 for r in dia_rows),
+            f"sparse: the DIA kernel was not launched on every DIA level: {per_level}")
     emit({"phase": "sparse", "N": N, "n": n, "m0": 8, "nodes": 8,
           "inside": int(len(lamf)), "iterations": res.n_iter, "sweeps": res.n_sweeps,
           "max_eig_relerr": relerr, "max_residual_host_f64": float(host_res.max()),
@@ -832,8 +923,10 @@ def phase_sparse(torch, ft, dev, N=1000):
           "launches_per_solve": launches,
           "bicgstab_iters_per_sweep_per_node": iters_log,
           "levels": [[type(L.A_op).__name__, L.A_op.shape[0],
-                      getattr(L.A_op, "ndiag", None), type(L.P).__name__]
-                     for L in amg.levels] + [["dense", amg.Ac.shape[0], None, None]],
+                      getattr(L.A_op, "ndiag", None), type(L.P).__name__,
+                      list(getattr(L.A_op, "offsets", ()))]
+                     for L in amg.levels] + [["dense", amg.Ac.shape[0], None, None, []]],
+          "dia_launches_by_rows": per_level,
           "peak_mem_gb": peak, "jacobi_complex64_n40000": jacobi})
     return launches["dia_spmm"], (K, B, X0, c, r, amg)
 
@@ -890,7 +983,11 @@ def phase_sparse_profile(torch, ft, dev, problem):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    k4_kernels = [e for e in kernels if "dia_spmm_kernel" in e.key]
+    k4_us = sum(e.self_device_time_total for e in k4_kernels)
     emit({"phase": "sparse_profile", "one_sweep_timed_wall_s": wall_timed,
+          "k4_device_ms": k4_us / 1e3, "k4_launches_profiled": sum(e.count for e in k4_kernels),
+          "k4_share_of_busy": k4_us / max(busy_us, 1e-9),
           "phase_wall_s": {k: {"s": v[0], "calls": v[1]} for k, v in phases.items()},
           "dia_launches_one_sweep": k4,
           "profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
@@ -900,10 +997,31 @@ def phase_sparse_profile(torch, ft, dev, problem):
                              for e in top]})
 
 
+def load_baseline(root):
+    """The K2 and K4 wrappers (ops.schur_kernel, ops.dia_kernel) of the
+    feast_tpu_torch package of another checkout, imported under another
+    name; its kernels build into that checkout's own _build directory."""
+    import importlib.util
+    import os
+
+    name = "baseline_feast_tpu_torch"
+    pkg = os.path.join(os.path.abspath(root), "feast_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return (importlib.import_module(name + ".ops.schur_kernel"),
+            importlib.import_module(name + ".ops.dia_kernel"))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list; the kernels and ok lines need all of them")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="a checkout of an earlier commit: k2 and k4 time its "
+                         "kernels beside these, in turns")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if phases - set(PHASES):
@@ -930,15 +1048,18 @@ def main(argv=None):
           "ptxas": {name: ptxas_summary(_build, name) for name in _build.SOURCE_FLAGS},
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    base_schur = base_dia = None
+    if args.baseline:
+        base_schur, base_dia = load_baseline(args.baseline)
     rows = []
     if "k1" in phases:
         rows.append(phase_k1(torch, panel_lu, dev))
     if "k2" in phases:
-        rows.append(phase_k2(torch, schur_kernel, dev))
+        rows.append(phase_k2(torch, schur_kernel, dev, base_schur))
     if "k3" in phases:
         rows.append(phase_k3(torch, ft, dev))
     if "k4" in phases:
-        rows.append(phase_k4(torch, dev))
+        rows.append(phase_k4(torch, dev, base_dia))
     if "small" in phases:
         phase_small(torch, ft, dev)
     launches = {}

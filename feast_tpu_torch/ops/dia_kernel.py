@@ -55,8 +55,9 @@ def _batched(t: torch.Tensor, batch) -> torch.Tensor:
 
 
 def dia_matvec(data: torch.Tensor, offsets, X: torch.Tensor) -> torch.Tensor:
-    """The product above.  CUDA tensors run the kernel (complex64 only);
-    CPU tensors run the plain version."""
+    """The product above.  CUDA tensors run the kernel (complex64 only; its
+    design and why it has no shared-memory windows are in
+    `csrc/dia_spmm.cu`); CPU tensors run the plain version."""
     global launches
     _check(data, offsets, X)
     if not data.is_cuda:

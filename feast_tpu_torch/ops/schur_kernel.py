@@ -6,6 +6,10 @@ Counterpart of `feast_tpu/ops/pallas_eig.py` (`_schur_kernel`, launched by
 exceptional shifts and deflation, and with want_y the eigenvectors Y of T
 and X = Y^{-1}.  complex64, 2 <= n <= 128.  The f32 Schur seed of
 `eig._schur_vecs32` comes from here on the card.
+
+The kernel runs one warp per matrix, its sweeps' forward and backward
+passes fused at a lag of two (`csrc/schur.cu`), so its rotations agree with
+`schur_plain`'s to rounding, not bit for bit.
 """
 
 from __future__ import annotations

@@ -293,3 +293,110 @@ def test_feast_iterative_on_card_launches_dia_kernel(dev):
     np.testing.assert_allclose(np.sort(lamf.real), exact, rtol=1e-9)
     assert np.linalg.norm(K @ X - (B @ X) * lamf[None, :], axis=0).max() < 1e-10
     assert dia_kernel.launches > before
+
+
+def _dia_case(dev, offs, n, ncols, m, bd, bx, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dshape = ((bd,) if bd else ()) + (len(offs), n)
+    xshape = ((bx,) if bx else ()) + (ncols, m)
+    data = torch.randn(dshape, dtype=torch.complex64, device=dev, generator=g)
+    X = torch.randn(xshape, dtype=torch.complex64, device=dev, generator=g)
+    return data, X
+
+
+@pytest.mark.parametrize("offs,n,ncols", [
+    ((-1001, -1000, -999, -1, 0, 1, 999, 1000, 1001), 10_007, 10_007),  # ragged n
+    ((-300, -5, 0, 7, 300), 3000, 3000),        # diagonals far apart
+    ((3, 9, 40), 2000, 2100),                    # upper only, ncols > n
+    ((-40, -9, -3), 2000, 1900),                 # lower only, ncols < n
+    ((0,), 257, 257)])
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_dia_kernel_matches_plain_on_edges(dev, offs, n, ncols, m):
+    for bd, bx in ((1, 1), (8, 8), (0, 8), (8, 0)):     # batch 1 and 8, shared data, shared X
+        data, X = _dia_case(dev, offs, n, ncols, m, bd, bx, n + m + bd)
+        before = dia_kernel.launches
+        got = dia_kernel.dia_matvec(data, offs, X)
+        assert dia_kernel.launches == before + 1
+        want = dia_kernel.dia_matvec_plain(data, offs, X)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_dia_kernel_many_diagonals_and_wide_rows(dev):
+    # 70 diagonals in one launch, summed in the order given (not sorted)
+    offs = tuple(range(34, -36, -1))
+    data, X = _dia_case(dev, offs, 1000, 1000, 8, 2, 2, 5)
+    before = dia_kernel.launches
+    got = dia_kernel.dia_matvec(data, offs, X)
+    assert dia_kernel.launches == before + 1
+    want = dia_kernel.dia_matvec_plain(data, offs, X)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    # rows of 4000 columns (the runtime column-pair count)
+    data, X = _dia_case(dev, (-1, 0, 1), 50, 50, 4000, 0, 0, 6)
+    got = dia_kernel.dia_matvec(data, (-1, 0, 1), X)
+    want = dia_kernel.dia_matvec_plain(data, (-1, 0, 1), X)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _schur_invariants(A, T, Z, Y, X, lam_tol=1e-4):
+    """Held in complex128, so that inputs far from 1 neither overflow nor
+    underflow the norms."""
+    A, T, Z, Y, X = (M.to(torch.complex128) for M in (A, T, Z, Y, X))
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    tol = 5e-7 * max(n, 8)
+    assert float(torch.tril(T, -1).abs().max()) == 0.0
+    assert float((Z.mH @ Z - eye).abs().max()) < tol
+    assert float(torch.linalg.norm(A @ Z - Z @ T) / torch.linalg.norm(A)) < tol
+    assert float((X @ Y - eye).abs().max()) < 1e-3
+    lk = torch.diagonal(T).cpu().numpy().astype(np.complex128)
+    lp = np.linalg.eigvals(A.cpu().numpy().astype(np.complex128))
+    D = np.abs(lk[:, None] - lp[None, :])
+    from scipy.optimize import linear_sum_assignment
+    r, c = linear_sum_assignment(D)
+    assert D[r, c].max() / np.abs(lp).max() < lam_tol
+
+
+@pytest.mark.parametrize("n", [2, 3, 8, 31, 32, 33, 48, 64, 112, 113, 114, 128])
+def test_schur_warp_kernel_invariants(dev, n):
+    """Lane ownership edges (31-33, 64, 128) and Z in shared memory (<= 113)
+    or in global memory (114, 128), on a batch of 3 packed into one block."""
+    g = torch.Generator(device=dev).manual_seed(100 + n)
+    A = torch.randn((3, n, n), dtype=torch.complex64, device=dev, generator=g)
+    before = schur_kernel.launches
+    T, Z, Y, X, st = schur_kernel.schur(A, want_y=True, return_stats=True)
+    assert schur_kernel.launches == before + 1
+    for b in range(3):
+        _schur_invariants(A[b], T[b], Z[b], Y[b], X[b])
+        assert int(st[b, 0]) >= 1
+
+
+@pytest.mark.parametrize("n", [8, 48, 128])
+@pytest.mark.parametrize("scale", [1e-20, 1e-15, 1e18])
+def test_schur_warp_kernel_scaled_input(dev, n, scale):
+    """Entries far from 1 (1e-20 as in SI units): the kernel scales A by a
+    power of two first, so its results hold there too.  (The plain version,
+    which squares squared magnitudes in fp32, does not converge at these
+    scales, so the kernel is held to numpy's eigenvalues and to its own
+    result at scale 1.)"""
+    g = torch.Generator(device=dev).manual_seed(200 + n)
+    A = torch.randn((n, n), dtype=torch.complex64, device=dev, generator=g)
+    T, Z, Y, X, st = schur_kernel.schur(A * scale, want_y=True, return_stats=True)
+    _schur_invariants(A * scale, T, Z, Y, X)
+    assert int(st[0]) >= 1
+    T1, Z1, Y1, X1, st1 = schur_kernel.schur(A, want_y=True, return_stats=True)
+    # a power of two changes no bit: T scales, Z, Y, X and the counts do not
+    p2 = 2.0 ** round(np.log2(scale))
+    T2, Z2, Y2, X2, st2 = schur_kernel.schur(A * p2, want_y=True, return_stats=True)
+    assert torch.equal(T2, T1 * p2) and torch.equal(Z2, Z1)
+    assert torch.equal(Y2, Y1) and torch.equal(X2, X1) and torch.equal(st2, st1)
+
+
+def test_schur_warp_kernel_diagonal_input(dev):
+    """diag(1:25): already triangular, no sweep; Y = X = I."""
+    A = torch.diag(torch.arange(1.0, 26.0)).to(torch.complex64).to(dev)
+    T, Z, Y, X, st = schur_kernel.schur(A, want_y=True, return_stats=True)
+    eye = torch.eye(25, dtype=A.dtype, device=dev)
+    assert int(st[0]) == 0 and torch.equal(T, A)
+    assert float((Z.mH @ Z - eye).abs().max()) < 1e-6
+    assert float((X @ Y - eye).abs().max()) < 1e-6

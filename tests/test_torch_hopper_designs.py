@@ -1,4 +1,4 @@
-"""Host-side checks of the two Hopper kernel designs, on the CPU.
+"""Host-side checks of the Hopper kernel designs, on the CPU.
 
 * The panel-LU kernel's launch plan (`ops/panel_lu.py::launch_plan`, the
   mirror of `csrc/panel_lu.cu::choose_plan`): shared memory within a block's
@@ -13,6 +13,12 @@
   version `cx._cmatmul_planes`, and the plain version held to the JAX
   package's Pallas kernel in interpret mode.  The emulation lives in this
   file only.
+* The Schur kernel's sweep order (`csrc/schur.cu`): float32 mirrors of the
+  lag-two fused sweep and of the two-pass sweep with row rotations
+  restricted to columns >= i (and T's column rotations j to rows <= j+2)
+  are equal bit for bit and agree with
+  `ops/eig.py::_qr_sweep` to rounding; a whole Schur iteration with the fused
+  sweep keeps the plain iteration's eigenvalues and sweep count.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ from feast_tpu import cx as jcx
 from feast_tpu.ops import pallas_kernels as pk
 from feast_tpu_torch import cx
 from feast_tpu_torch.ops import panel_lu
+from feast_tpu_torch.ops import eig as teig
 
 # clusters of C blocks that an H100 SXM holds at once with one block per
 # SM, as cudaOccupancyMaxActiveClusters reports them for this kernel
@@ -166,3 +173,162 @@ def test_karatsuba_plain_matches_pallas_interpret_batched(monkeypatch):
     assert got.shape == (3, m, n)
     np.testing.assert_allclose(got[2].numpy(), want, rtol=0, atol=1e-3 * np.sqrt(k))
     np.testing.assert_allclose(got[0].numpy(), a @ b, rtol=0, atol=1e-3 * np.sqrt(k))
+
+
+# ---------------------------------------------------------------------------
+# K2: the Schur kernel's lag-two sweep
+# ---------------------------------------------------------------------------
+
+def _givens32(ar, ai, br, bi):
+    """csrc/schur.cu::givens on float32 0-d tensors: c = |a|/r,
+    s = phase(a) conj(b)/r."""
+    one, zero = torch.ones((), dtype=torch.float32), torch.zeros((), dtype=torch.float32)
+    na2, nb2 = ar * ar + ai * ai, br * br + bi * bi
+    r2 = na2 + nb2
+    rr = torch.sqrt(torch.where(r2 > 0, r2, one))
+    absa = torch.sqrt(na2)
+    safe = torch.where(na2 > 0, absa, one)
+    pr = torch.where(na2 > 0, ar / safe, one)
+    pi = torch.where(na2 > 0, ai / safe, zero)
+    bz = nb2 == 0
+    c = torch.where(bz, one, absa / rr)
+    sr = torch.where(bz, zero, (pr * br + pi * bi) / rr)
+    si = torch.where(bz, zero, (pi * br - pr * bi) / rr)
+    return c, sr, si
+
+
+def _row_rot(Hr, Hi, i, c, sr, si):
+    """Rows i, i+1 at columns >= i: top = c ri + s rn, bot = c rn - conj(s) ri."""
+    ar, ai = Hr[i, i:].clone(), Hi[i, i:].clone()
+    br, bi = Hr[i + 1, i:].clone(), Hi[i + 1, i:].clone()
+    Hr[i, i:] = c * ar + sr * br - si * bi
+    Hi[i, i:] = c * ai + sr * bi + si * br
+    Hr[i + 1, i:] = br * c - (sr * ar + si * ai)
+    Hi[i + 1, i:] = bi * c - (sr * ai - si * ar)
+
+
+def _col_rot(Mr, Mi, j, c, sr, si, rows=None):
+    """Columns j, j+1 of rows < rows (all by default): M[:, j] = c u +
+    conj(s) w, M[:, j+1] = c w - s u."""
+    ur, ui = Mr[:rows, j].clone(), Mi[:rows, j].clone()
+    wr, wi = Mr[:rows, j + 1].clone(), Mi[:rows, j + 1].clone()
+    Mr[:rows, j] = c * ur + sr * wr + si * wi
+    Mi[:rows, j] = c * ui + sr * wi - si * wr
+    Mr[:rows, j + 1] = c * wr - (sr * ur - si * ui)
+    Mi[:rows, j + 1] = c * wi - (sr * ui + si * ur)
+
+
+def sweep_two_pass(Hr, Hi, Zr, Zi, k):
+    """All k row rotations (restricted to columns >= i), then the column
+    rotations of H (restricted to rows <= j+2: below, H holds only rounding
+    residues) and Z in order."""
+    rots = []
+    for i in range(k):
+        rot = _givens32(Hr[i, i], Hi[i, i], Hr[i + 1, i], Hi[i + 1, i])
+        _row_rot(Hr, Hi, i, *rot)
+        rots.append(rot)
+    for j, rot in enumerate(rots):
+        _col_rot(Hr, Hi, j, *rot, rows=j + 3)
+        _col_rot(Zr, Zi, j, *rot)
+
+
+def sweep_fused(Hr, Hi, Zr, Zi, k):
+    """The kernel's order: step i applies row rotation i and column
+    rotation i-2; rotation i+1 is formed inside step i; the last two column
+    rotations follow the loop."""
+    rots = [_givens32(Hr[0, 0], Hi[0, 0], Hr[1, 0], Hi[1, 0])]
+    for i in range(k):
+        _row_rot(Hr, Hi, i, *rots[i])
+        if i + 1 < k:
+            rots.append(_givens32(Hr[i + 1, i + 1], Hi[i + 1, i + 1],
+                                  Hr[i + 2, i + 1], Hi[i + 2, i + 1]))
+        if i >= 2:
+            _col_rot(Hr, Hi, i - 2, *rots[i - 2], rows=i + 1)
+            _col_rot(Zr, Zi, i - 2, *rots[i - 2])
+    for j in range(max(k - 2, 0), k):
+        _col_rot(Hr, Hi, j, *rots[j], rows=j + 3)
+        _col_rot(Zr, Zi, j, *rots[j])
+
+
+def _planes(M):
+    return M.real.clone().contiguous(), M.imag.clone().contiguous()
+
+
+def mirror_qr_sweep(H, Z, k, sigma, sweep):
+    """One shifted sweep on complex64 H, Z with a float32 mirror `sweep`."""
+    n = H.shape[-1]
+    dsig = torch.where(torch.arange(n) <= k, sigma, torch.zeros((), dtype=H.dtype))
+    Hr, Hi = _planes(H - torch.diag(dsig))
+    Zr, Zi = _planes(Z)
+    sweep(Hr, Hi, Zr, Zi, k)
+    return torch.complex(Hr, Hi) + torch.diag(dsig), torch.complex(Zr, Zi)
+
+
+def _hessenberg64(rng, n):
+    A = torch.as_tensor(rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)),
+                        dtype=torch.complex64)
+    H, Q = teig.hessenberg(A)
+    return H, Q
+
+
+@pytest.mark.parametrize("n", [2, 3, 8, 48, 128])
+def test_schur_fused_sweep_equals_restricted_two_pass(n):
+    rng = np.random.default_rng(n)
+    H, Q = _hessenberg64(rng, n)
+    for k in sorted({1, n // 2, n - 1} - {0}):
+        sigma = H[k, k] + 0.1
+        Hf, Zf = mirror_qr_sweep(H, Q, k, sigma, sweep_fused)
+        Ht, Zt = mirror_qr_sweep(H, Q, k, sigma, sweep_two_pass)
+        assert torch.equal(Hf, Ht) and torch.equal(Zf, Zt), (n, k)
+        # the unrestricted sweep also rotates the rounding residues left of
+        # column i and below the subdiagonal: equal to rounding
+        Hp, Zp = teig._qr_sweep(H, Q, k, sigma)
+        scale = float(torch.linalg.norm(H))
+        assert float((Hf - Hp).abs().max()) <= 1e-5 * scale, (n, k)
+        assert float((Zf - Zp).abs().max()) <= 1e-5, (n, k)
+
+
+def _schur_fused(A, max_sweeps_per_eig=30):
+    """ops/eig.py::_schur_plain with the fused float32 sweep."""
+    n = A.shape[-1]
+    H, Z = teig.hessenberg(A)
+    eps = torch.finfo(torch.float32).eps
+    fnorm = torch.linalg.norm(H)
+    tolfb = eps * torch.where(fnorm > 0, fnorm, 1.0)
+    sub_r, sub_c = torch.arange(1, n), torch.arange(n - 1)
+
+    def deflate(H):
+        dabs = torch.diagonal(H).abs()
+        tol = eps * (dabs[:-1] + dabs[1:])
+        tol = torch.where(tol > 0, tol, tolfb)
+        sub = H[sub_r, sub_c]
+        conv = sub.abs() <= tol
+        H[sub_r, sub_c] = torch.where(conv, torch.zeros_like(sub), sub)
+        return int(torch.max(torch.where(conv, 0, sub_c + 1)))
+
+    k = deflate(H)
+    it = stag = 0
+    while k > 0 and it < max_sweeps_per_eig * n:
+        sigma = teig._wilkinson_shift(H, k, stag)
+        H, Z = mirror_qr_sweep(H, Z, k, sigma, sweep_fused)
+        k_new = deflate(H)
+        stag = 0 if k_new < k else stag + 1
+        k = k_new
+        it += 1
+    return torch.triu(H), Z, it
+
+
+def test_schur_iteration_with_fused_sweep_keeps_eigenvalues_and_sweeps():
+    rng = np.random.default_rng(48)
+    A = torch.as_tensor(rng.standard_normal((48, 48)) + 1j * rng.standard_normal((48, 48)),
+                        dtype=torch.complex64)
+    T, Z, it = _schur_fused(A)
+    Tp, Zp, (itp, _) = teig._schur_plain(A)
+    lam, lamp = torch.diagonal(T).numpy(), torch.diagonal(Tp).numpy()
+    D = np.abs(lam[:, None] - lamp[None, :])
+    from scipy.optimize import linear_sum_assignment
+    r, c = linear_sum_assignment(D)
+    assert D[r, c].max() / np.abs(lamp).max() < 1e-4
+    assert abs(it - itp) <= 0.05 * itp, (it, itp)
+    assert float(torch.linalg.norm(A @ Z - Z @ T) / torch.linalg.norm(A)) < 1e-5
+
