@@ -14,9 +14,13 @@ Phases, each printing one JSON line:
           against its plain PyTorch version on 16 slabs of (4096, 128)
           complex64 at j0 = 0 and 1920; whole factors at n = 1024 and 4096
           (16 nodes); timings over 8 panel positions of an n = 4096 factor,
-          with torch.linalg.lu_factor as a library yardstick
+          with torch.linalg.lu_factor as a library yardstick; the zero-padded
+          route at the nonlinear path's n = 9956 (padded to 9,984, 4 nodes)
+          bit for bit against the plain version on the padded matrix, and
+          its launches timed at the first and the last two panels
   k2      the Schur kernel against its plain version at n = 2, 8 (the sparse
-          path's m0), 48 (the dense path's) and 128: invariants, sweeps and
+          path's m0), 48 (the dense path's) and 84 (the nonlinear path's),
+          and at 128 against LAPACK's eigenvalues: invariants, sweeps and
           rotation steps, ptxas registers, with torch.linalg.eig as a
           yardstick; then its time and invariants at n = 64, 96, 112 and at
           entries scaled by 1e-20 and 1e18
@@ -57,6 +61,21 @@ Phases, each printing one JSON line:
           (Rayleigh-Ritz, node solves, V-cycle share), and one under
           torch.profiler: device busy share, the DIA kernel's device time and
           share, top kernels
+  nonlinear  the reference's gun configuration: gun_like(9956, seed=0,
+          planted=25) built on the card, then nlfeast(mixed_prec=True,
+          store=False; 16 nodes, c=105, r=8, m0=84, tol 1e-10) from
+          benchmarks/gun.py's X0, one cold and one warm solve and one with
+          each driver phase timed (evaluate, factor, solve and refine,
+          extract), one under torch.profiler (device busy share, kernel
+          launches; the extraction's alone); the panel and Schur kernels'
+          launches counted over the cold solve; 25 non-spurious eigenvalues
+          inside, each residual recomputed on the host in float64 from the
+          parts
+  nonlinear_small  beyn and block_ss (32 nodes) and nlfeast_moments on
+          gun_like(2048) against nlfeast there (1e-8); companion on
+          butterfly() against scipy's eigenvalues of the same pencil;
+          contour_estimate_eig(mixed_prec=True) on the main phase's matrix
+          against the count inside
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failed check raises, and the script exits non-zero without the ok line.
 The script never imports JAX or the JAX package.
@@ -65,6 +84,7 @@ The script never imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib
 import json
 import subprocess
@@ -74,7 +94,7 @@ import time
 import numpy as np
 
 PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "sparse",
-          "sparse_profile")
+          "sparse_profile", "nonlinear", "nonlinear_small")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32, outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # H100 SXM TF32 tensor cores, dense
@@ -233,40 +253,18 @@ def phase_k1(torch, panel_lu, dev):
     # timings at the main path's shapes: 8 panel positions of one factor
     Afull = torch.randn((B, n, n), dtype=torch.complex64, device=dev, generator=gen)
     positions = list(range(0, n, 512))
-    k_ms, p_ms, l_ms, b_ms = [], [], [], []
-    for j0 in positions:
-        saved = Afull[:, :, j0:j0 + b].clone()
-        view = Afull[:, :, j0:j0 + b]
-
-        def restore():
-            view.copy_(saved)
-
-        restore()
-        panel_lu.panel_factor(view, j0)            # warm
-        restore()
-        torch.cuda.synchronize()
-        k_ms.append(cuda_ms(lambda: panel_lu.panel_factor(view, j0)))
-        restore()
-        torch.cuda.synchronize()
-        p_ms.append(cuda_ms(lambda: panel_lu.panel_factor_plain(view, j0)))
-        sub = saved[:, j0:, :].contiguous()
-        torch.linalg.lu_factor(sub)
-        torch.cuda.synchronize()
-        l_ms.append(cuda_ms(lambda: torch.linalg.lu_factor(sub)))
-        # all n rows read once (the slab max behind tiny), rows >= j0 written,
-        # perm and the L11 inverse written
-        nbytes = B * (n * b * 8 + (n - j0) * b * 8 + n * 4 + b * b * 8)
-        b_ms.append(bound_ms(nbytes, B * panel_flops(n, b, j0)))
-        restore()
-    bounds = [t for t, _ in b_ms]
+    t = [panel_timing(torch, panel_lu, Afull, j0, b) for j0 in positions]
     # the regime that carries the larger share of the summed per-position bound
-    by = {kind: sum(t for t, k in b_ms if k == kind) for kind in ("bytes", "operations")}
-    out["timing"] = {"positions_j0": positions, "batch": B, "n": n, "b": b,
-                     "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                     "bound_ms": bounds, "bound_by": [k for _, k in b_ms]}
-    emit(out)
+    by = {kind: sum(x["bound_ms"] for x in t if x["bound_by"] == kind)
+          for kind in ("bytes", "operations")}
+    out["timing"] = {"positions_j0": positions, "batch": B, "n": n, "b": b}
+    out["timing"].update({k: [x[k] for x in t] for k in t[0]})
+    k_ms, p_ms, l_ms, bounds = (out["timing"][k] for k in
+                                ("kernel_ms", "plain_ms", "library_ms", "bound_ms"))
     del Afull
     torch.cuda.empty_cache()
+    out["padded_gun"] = k1_padded(torch, panel_lu, dev, gen)
+    emit(out)
     return {"name": "panel_lu", "route": "cuda",
             "source": "feast_tpu_torch/csrc/panel_lu.cu",
             "replaces": "feast_tpu/ops/pallas_lu.py:51",
@@ -274,6 +272,80 @@ def phase_k1(torch, panel_lu, dev):
             "plain_ms": float(np.mean(p_ms)), "bound_ms": float(np.mean(bounds)),
             "bound_by": max(by, key=by.get),
             "library_ms": float(np.mean(l_ms))}
+
+
+def panel_timing(torch, panel_lu, A, j0, b=128):
+    """Kernel, plain and library ms of one panel launch on the (B, n, b)
+    slab of A at j0 (restored between runs and after), with its bound: all
+    n rows read once (the slab max behind the zero-pivot floor), rows >= j0
+    written, perm and the L11 inverse written."""
+    Bsz, n, _ = A.shape
+    saved = A[:, :, j0:j0 + b].clone()
+    view = A[:, :, j0:j0 + b]
+    view.copy_(saved)
+    panel_lu.panel_factor(view, j0)            # warm
+    view.copy_(saved)
+    torch.cuda.synchronize()
+    k_ms = cuda_ms(lambda: panel_lu.panel_factor(view, j0))
+    view.copy_(saved)
+    torch.cuda.synchronize()
+    p_ms = cuda_ms(lambda: panel_lu.panel_factor_plain(view, j0))
+    sub = saved[:, j0:, :].contiguous()
+    # the _ex form: a slab of pad columns is singular, which lu_factor rejects
+    torch.linalg.lu_factor_ex(sub)
+    torch.cuda.synchronize()
+    l_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(sub))
+    view.copy_(saved)
+    nbytes = Bsz * (n * b * 8 + (n - j0) * b * 8 + n * 4 + b * b * 8)
+    bms, bby = bound_ms(nbytes, Bsz * panel_flops(n, b, j0))
+    return {"kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": bms, "bound_by": bby}
+
+
+GUN_N, GUN_M0 = 9956, 84
+
+
+def k1_padded(torch, panel_lu, dev, gen, B=4):
+    """The zero-padded route at the gun's n = 9956 (padded to 9,984: 78
+    panels), B nodes as one factor chunk of the nonlinear path:
+    `lu.lu_factor` on the card bit for bit against lu_factor_panel(pad(A),
+    plain version), cropped; then one launch timed at the first panel, the
+    last one of A's columns only (j0 = 9728) and the last one (j0 = 9856:
+    100 columns of A, 28 of padding)."""
+    lumod = importlib.import_module("feast_tpu_torch.ops.lu")
+    n = GUN_N
+    n_pad = -(-n // 128) * 128
+    A = torch.randn((B, n, n), dtype=torch.complex64, device=dev, generator=gen)
+    before = panel_lu.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    LU, perm = lumod.lu_factor(A)
+    torch.cuda.synchronize()
+    t_route = time.perf_counter() - t0
+    launches = panel_lu.launches - before
+    buf = torch.zeros((B, n_pad, n_pad), dtype=A.dtype, device=dev)
+    buf[:, :n, :n] = A
+    t0 = time.perf_counter()
+    LUp, permp = panel_lu.lu_factor_panel(buf, panel=panel_lu.panel_factor_plain,
+                                          inplace=True)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    require(launches == n_pad // 128, f"k1 padded: {launches} launches, {n_pad // 128} panels")
+    require(torch.equal(perm, permp[:, :n]), "k1 padded n=9956: perm differs from plain")
+    require(torch.equal(LU, LUp[:, :n, :n]), "k1 padded n=9956: LU not bit-equal to plain")
+    require(int(perm.max()) < n, "k1 padded n=9956: a pad row was chosen as a pivot")
+    del LU, perm, LUp, permp
+    buf.zero_()
+    buf[:, :n, :n] = A
+    del A
+    torch.cuda.empty_cache()
+    timing = {f"j0_{j0}": panel_timing(torch, panel_lu, buf, j0)
+              for j0 in (0, n_pad - 256, n_pad - 128)}
+    del buf
+    torch.cuda.empty_cache()
+    return {"n": n, "n_pad": n_pad, "batch": B, "bit_equal": True,
+            "launches_per_factor": launches, "route_factor_s": t_route,
+            "plain_factor_s": t_plain, "timing": timing}
 
 
 # ---------------------------------------------------------------------------
@@ -342,26 +414,35 @@ def phase_k2(torch, schur_kernel, dev, base=None):
     out = {"phase": "k2", "ptxas": ptxas_summary(_build, "schur")}
     row = None
     gen = torch.Generator(device=dev).manual_seed(2)
-    # drawn in this order so that n = 2, 48, 128 keep their earlier inputs
+    # drawn in this order so that n = 2, 48, 128 keep their earlier inputs;
+    # n = 84 (the nonlinear path's m0) from a generator of its own, so that
+    # the later draws keep theirs too
     mats = {n: torch.randn((n, n), dtype=torch.complex64, device=dev, generator=gen)
             for n in (2, 48, 128, 8)}
-    for n in (2, 8, 48, 128):
+    mats[84] = torch.randn((84, 84), dtype=torch.complex64, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(84))
+    for n in (2, 8, 48, 84, 128):
         A = mats[n]
         T, Z, Y, X, st = schur_kernel.schur(A, want_y=True, return_stats=True)
-        Tp, Zp, Yp, Xp, stp = schur_kernel.schur_plain(A, want_y=True, return_stats=True)
+        checks = {"sweeps": int(st[0]), "work": int(st[1])}
+        if n <= 84:   # the paths' shapes: against the plain version
+            Tp, Zp, Yp, Xp, stp = schur_kernel.schur_plain(A, want_y=True,
+                                                           return_stats=True)
+            lam_ref = torch.diagonal(Tp).cpu().numpy()
+            checks.update({"plain_sweeps": int(stp[0]), "plain_work": int(stp[1])})
+        else:         # against LAPACK's eigenvalues (the plain version: 15 s)
+            lam_ref = np.linalg.eigvals(A.cpu().numpy().astype(np.complex128))
         torch.cuda.synchronize()
-        lam_p = torch.diagonal(Tp).cpu().numpy()
-        checks = schur_checks(torch, f"k2 n={n}", A, T, Z, Y, X, lam_p)
+        checks.update(schur_checks(torch, f"k2 n={n}", A, T, Z, Y, X, lam_ref))
         lam_err = checks["eig_match_err"]
-        checks.update({"sweeps": int(st[0]), "work": int(st[1]),
-                       "plain_sweeps": int(stp[0]), "plain_work": int(stp[1])})
         if n == 48:  # the one-block kernel took 122 sweeps on this input
             require(abs(checks["sweeps"] - 122) <= 0.05 * 122,
                     f"k2 n=48: {checks['sweeps']} sweeps, 122 +- 5% expected")
         reps = 20
         base_fn = (lambda: base.schur(A, want_y=True)) if base is not None else None
         k_ms, b_ms = in_turns(lambda: schur_kernel.schur(A, want_y=True), base_fn, reps)
-        p_ms = cuda_ms(lambda: schur_kernel.schur_plain(A, want_y=True), 1)
+        p_ms = (cuda_ms(lambda: schur_kernel.schur_plain(A, want_y=True), 1)
+                if n <= 84 else None)
         torch.linalg.eig(A)
         l_ms = cuda_ms(lambda: torch.linalg.eig(A), 5)
         nbytes = 5 * n * n * 8
@@ -697,7 +778,41 @@ def phase_main(torch, ft, dev, reps=3):
           "per_sweep_s": (best - factor_s) / max(res.n_iter, 1),
           "launches_per_solve": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
-    return launches
+    return launches, int(len(lam))
+
+
+def traced(torch, fn):
+    """fn() once under torch.profiler, summed from the raw trace events
+    (building the profiler's per-event objects with key_averages() takes
+    minutes for the 1e5-1e6 events of one solve): wall, device busy time
+    and idle share, kernel launch calls, kernels run, and [name, count, ms]
+    per kernel name, most device time first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, launches = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            cnt, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (cnt + 1, ns + e.duration_ns())
+        elif e.name() == "cudaLaunchKernel":
+            launches += 1
+    busy = sum(ns for _, ns in by_name.values()) / 1e9
+    ranked = sorted(([k, c, ns / 1e6] for k, (c, ns) in by_name.items()),
+                    key=lambda row: row[2], reverse=True)
+    return {"wall_s": wall, "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+            "cuda_launch_calls": launches, "kernel_count": sum(c for c, _ in by_name.values()),
+            "kernels": ranked}
+
+
+def top_kernels(tr, k=12, width=70):
+    return [[name[:width], cnt, ms] for name, cnt, ms in tr["kernels"][:k]]
 
 
 def phase_profile(torch, ft, dev):
@@ -706,9 +821,6 @@ def phase_profile(torch, ft, dev):
     its small eig, node update), one under torch.profiler for the device
     busy share, the kernel launch calls and the kernels with the most
     device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
     A, X0, c, r = bench_problem()
     At, Xt = torch.as_tensor(A, device=dev), torch.as_tensor(X0, device=dev)
@@ -743,22 +855,13 @@ def phase_profile(torch, ft, dev):
         for (m, name), fn in zip(wrapped, saved):
             setattr(m, name, fn)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ft.feast_compiled(At, Xt, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    tr = traced(torch, lambda: ft.feast_compiled(At, Xt, **kw))
     emit({"phase": "profile", "timed_wall_s": wall_timed,
           "phase_wall_s": {k: {"s": v[0], "calls": v[1]} for k, v in phases.items()},
-          "profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
-          "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-          "cuda_launch_calls": launches, "kernel_count": sum(e.count for e in kernels),
-          "top_kernels_ms": [[e.key[:70], e.count, e.self_device_time_total / 1e3]
-                             for e in top]})
+          "profiled_wall_s": tr["wall_s"], "device_busy_s": tr["device_busy_s"],
+          "device_idle_share": tr["device_idle_share"],
+          "cuda_launch_calls": tr["cuda_launch_calls"], "kernel_count": tr["kernel_count"],
+          "top_kernels_ms": top_kernels(tr)})
 
 
 # ---------------------------------------------------------------------------
@@ -936,9 +1039,6 @@ def phase_sparse_profile(torch, ft, dev, problem):
     a cold start) twice on the hierarchy of the `sparse` phase: once with
     host timers around its phases, each synchronized, once under
     torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     amgmod = importlib.import_module("feast_tpu_torch.ops.amg")
     krylov = importlib.import_module("feast_tpu_torch.ops.krylov")
     ifmod = importlib.import_module("feast_tpu_torch.solvers.ifeast")
@@ -975,26 +1075,225 @@ def phase_sparse_profile(torch, ft, dev, problem):
         wall_timed = time.perf_counter() - t0
         k4 = dk.launches
     with Patched(reuse):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ft.feast_iterative(K, B, X0, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
-    k4_kernels = [e for e in kernels if "dia_spmm_kernel" in e.key]
-    k4_us = sum(e.self_device_time_total for e in k4_kernels)
+        tr = traced(torch, lambda: ft.feast_iterative(K, B, X0, **kw))
+    k4_kernels = [row for row in tr["kernels"] if "dia_spmm_kernel" in row[0]]
+    k4_ms = sum(ms for _, _, ms in k4_kernels)
     emit({"phase": "sparse_profile", "one_sweep_timed_wall_s": wall_timed,
-          "k4_device_ms": k4_us / 1e3, "k4_launches_profiled": sum(e.count for e in k4_kernels),
-          "k4_share_of_busy": k4_us / max(busy_us, 1e-9),
+          "k4_device_ms": k4_ms, "k4_launches_profiled": sum(c for _, c, _ in k4_kernels),
+          "k4_share_of_busy": k4_ms / 1e3 / max(tr["device_busy_s"], 1e-9),
           "phase_wall_s": {k: {"s": v[0], "calls": v[1]} for k, v in phases.items()},
           "dia_launches_one_sweep": k4,
-          "profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
-          "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-          "kernel_count": sum(e.count for e in kernels),
-          "top_kernels_ms": [[e.key[:70], e.count, e.self_device_time_total / 1e3]
-                             for e in top]})
+          "profiled_wall_s": tr["wall_s"], "device_busy_s": tr["device_busy_s"],
+          "device_idle_share": tr["device_idle_share"],
+          "kernel_count": tr["kernel_count"], "top_kernels_ms": top_kernels(tr)})
+
+
+# ---------------------------------------------------------------------------
+# the nonlinear path
+# ---------------------------------------------------------------------------
+
+GUN_KW = dict(nodes=16, iters=10, c=105.0 + 0.0j, r=8.0, tol=1e-10, spurious=1e-5,
+              mixed_prec=True, store=False)
+
+
+def gun_host_residuals(T, lam, X):
+    """||T(lam) x|| and ||T(lam) x|| / ||T(lam)||_F of each pair, in float64
+    on the host from the parts: T(z) = K - z I + i sqrt(z - s1^2) W1
+    + i sqrt(z - s2^2) W2 (M is the identity in planted mode)."""
+    K, W1, W2 = (T.mats[j].real.cpu().numpy() for j in (0, 2, 3))
+    s1, s2 = 0.0, np.sqrt(0.8 * 100.0)          # gun_like's planted branch points
+    f1 = 1j * np.sqrt(lam - s1 * s1 + 0j)
+    f2 = 1j * np.sqrt(lam - s2 * s2 + 0j)
+    R = K @ X - X * lam + f1 * (W1 @ X) + f2 * (W2 @ X)
+    mats = [K, np.eye(K.shape[0]), W1, W2]
+    G = np.array([[np.vdot(a, b) for b in mats] for a in mats])
+    co = np.stack([np.ones_like(lam), -lam, f1, f2])
+    fro = np.sqrt(np.einsum("jm,jk,km->m", co.conj(), G, co).real)
+    absres = np.linalg.norm(R, axis=0)
+    return absres, absres / fro
+
+
+def phase_nonlinear(torch, ft, dev):
+    """The reference's gun configuration: N = 9956, m0 = 84, 16 nodes."""
+    panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
+    schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
+    nlmod = importlib.import_module("feast_tpu_torch.solvers.nlfeast")
+    lumod = nlmod.lumod
+    n, m0 = GUN_N, GUN_M0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T = ft.problems.gun_like(n, seed=0, planted=25, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)                 # as benchmarks/gun.py draws it
+    X0 = rng.standard_normal((n, m0)) + 1j * rng.standard_normal((n, m0))
+
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ft.nlfeast(T, X0, device=dev, **GUN_KW)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) / 1e9     # T's 4 n^2 complex128 among it
+    panel_lu.launches = 0
+    schur_kernel.launches = 0
+    out, cold_s = solve()
+    launches = {"panel_lu": panel_lu.launches, "schur": schur_kernel.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    out, warm_s = solve()
+
+    # a third solve with each driver phase synchronized and timed
+    phases = {}
+
+    def timer(fn, name):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            tot, cnt = phases.get(name, (0.0, 0))
+            phases[name] = (tot + time.perf_counter() - t0, cnt + 1)
+            return res
+        return run
+
+    extract, extract_args = nlmod._extract, []
+
+    def kept(*a):
+        extract_args.append(a)
+        return extract(*a)
+
+    with Patched((T, "eval_nodes", timer(T.eval_nodes, "evaluate")),
+                 (lumod, "lu_factor_inplace", timer(lumod.lu_factor_inplace, "factor")),
+                 (lumod, "lu_diag_inv", timer(lumod.lu_diag_inv, "factor")),
+                 (nlmod, "_node_solve", timer(nlmod._node_solve, "solve_refine")),
+                 (nlmod, "_extract", timer(kept, "extract"))):
+        _, timed_s = solve()
+    profiled = {}
+    for name, fn in (("solve", solve), ("extract_alone", lambda: extract(*extract_args[0]))):
+        tr = traced(torch, fn)
+        profiled[name] = dict({k: tr[k] for k in ("wall_s", "device_busy_s",
+                                                  "device_idle_share", "cuda_launch_calls",
+                                                  "kernel_count")},
+                              top_kernels_ms=top_kernels(tr, 8, 60))
+
+    lam, X, res = out.filtered(spurious=GUN_KW["spurious"])
+    absres, relres = gun_host_residuals(T, lam, X)
+    require(out.converged, "nonlinear: not converged")
+    require(len(lam) == 25, f"nonlinear: {len(lam)} non-spurious eigenvalues inside, 25 planted")
+    require(np.isfinite(absres).all() and relres.max() < GUN_KW["tol"]
+            and absres.max() < 1e-10,
+            f"nonlinear: host residual {absres.max()} (relative {relres.max()})")
+    require(launches["panel_lu"] > 0 and launches["schur"] > 0,
+            f"nonlinear: kernel launches {launches}")
+    emit({"phase": "nonlinear", "n": n, "m0": m0, "nodes": 16, "c": 105.0, "r": 8.0,
+          "tol": GUN_KW["tol"], "inside_nonspurious": int(len(lam)),
+          "sweeps": out.n_iter, "max_residual_solver": float(res.max()),
+          "max_residual_host_f64": float(absres.max()),
+          "max_relative_residual_host_f64": float(relres.max()),
+          "build_s": build_s, "cold_s": cold_s, "warm_s": warm_s,
+          "timed_s": timed_s,
+          "phase_wall_s": {k: {"s": v[0], "calls": v[1]} for k, v in phases.items()},
+          "launches_per_solve": launches, "allocated_before_solve_gb": before,
+          "peak_mem_gb": peak, "profile": profiled,
+          "eigenvalues_real": np.sort(lam.real).tolist()})
+    return launches
+
+
+
+
+def _match_within(a, b, tol, what):
+    require(len(a) == len(b), f"{what}: {len(a)} eigenvalues against {len(b)}")
+    err = _match_err(np.asarray(a), np.asarray(b)) if len(a) else 0.0
+    require(err < tol, f"{what}: eigenvalues differ by {err}")
+    return err
+
+
+def phase_nonlinear_small(torch, ft, dev, inside_main=None, n=2048, bench_n=4096):
+    """The other nonlinear entry points at cut sizes: beyn, block_ss and
+    nlfeast_moments on gun_like(2048) against nlfeast there; companion on
+    butterfly() against scipy; the stochastic count on the dense headline's
+    matrix with complex64 factors (the panel kernel at n = 4096), against
+    the count the main phase found inside (LAPACK's when main did not run)."""
+    import scipy.linalg as sla
+
+    panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
+    out = {"phase": "nonlinear_small"}
+    c, r = 105.0 + 0.0j, 8.0
+    T = ft.problems.gun_like(n, seed=0, planted=25, device=dev)
+    rng = np.random.default_rng(0)
+    X0 = rng.standard_normal((n, 40)) + 1j * rng.standard_normal((n, 40))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    ref, t_ref = timed(lambda: ft.nlfeast(T, X0, device=dev, **GUN_KW))
+    lam_ref, _, _ = ref.filtered(spurious=1e-5)
+    require(ref.converged and len(lam_ref) == 25, f"nonlinear_small: nlfeast found {len(lam_ref)}")
+    out["nlfeast"] = {"n": n, "m0": 40, "sweeps": ref.n_iter, "s": t_ref}
+    # single shot on 32 nodes: the holomorphic remainder's quadrature error
+    # decays as (r / 25)^N, 25 the distance to the branch point s2^2 = 80
+    b, t_b = timed(lambda: ft.beyn(T, X0, nodes=32, c=c, r=r, relative_res=True, device=dev))
+    lb, rb = b.lam.cpu().numpy(), b.res.cpu().numpy()
+    good = (np.abs(lb - c) <= r) & (rb < 1e-6)
+    out["beyn"] = {"nodes": 32, "m0": 40, "s": t_b,
+                   "eig_err_vs_nlfeast": _match_within(lb[good], lam_ref, 1e-8, "beyn")}
+    ss, t_ss = timed(lambda: ft.block_ss(T, X0[:, :20], nodes=32, moments=2, c=c, r=r,
+                                         device=dev))
+    ls, rs = ss.lam.cpu().numpy(), ss.res.cpu().numpy()
+    good = (np.abs(ls - c) <= r) & (rs < 1e-6)
+    out["block_ss"] = {"nodes": 32, "m0": 20, "moments": 2, "s": t_ss,
+                       "eig_err_vs_nlfeast": _match_within(ls[good], lam_ref, 1e-8, "block_ss")}
+    mo, t_mo = timed(lambda: ft.nlfeast_moments(T, X0[:, :20], nodes=16, iters=10, moments=2,
+                                                c=c, r=r, tol=1e-10, spurious=1e-5,
+                                                device=dev))
+    lm, _, rm = mo.filtered(spurious=1e-5)
+    require(mo.converged and rm.max() < 1e-10, f"nonlinear_small: moments residual {rm.max()}")
+    out["nlfeast_moments"] = {"nodes": 16, "m0": 20, "moments": 2, "s": t_mo,
+                              "sweeps": mo.n_iter,
+                              "eig_err_vs_nlfeast": _match_within(lm, lam_ref, 1e-8, "moments")}
+    del T
+
+    _, coeffs = ft.problems.butterfly(device=dev)
+    comp, t_c = timed(lambda: ft.companion(coeffs, device=dev))
+    N, L = coeffs[0].shape[0], len(coeffs) - 1
+    C1 = np.zeros((N * L, N * L), dtype=np.complex128)
+    C2 = np.zeros_like(C1)
+    C1[:N, :N] = coeffs[0]
+    for i in range(N, N * L):
+        C1[i, i] = 1.0
+        C2[i, i - N] = 1.0
+    for i in range(L):
+        C2[:N, N * i:N * (i + 1)] = -coeffs[i + 1]
+    want = sla.eigvals(C1, C2)
+    got = comp.lam.cpu().numpy()
+    scale = float(np.abs(want).max())
+    out["companion"] = {"N": N, "degree": L, "s": t_c,
+                        "eig_err_vs_scipy_rel": _match_within(got, want, 1e-10 * scale,
+                                                              "companion") / scale,
+                        "max_relative_residual": float(comp.res.max())}
+    require(float(comp.res.max()) < 1e-10, f"companion: residual {float(comp.res.max())}")
+
+    A, _, c0, r0 = bench_problem(n=bench_n)
+    k = ft.circular_contour_trapezoidal(c0, r0, 16)
+    panel_lu.launches = 0
+    est, t_e = timed(lambda: ft.contour_estimate_eig(A, k, samples=100, seed=0,
+                                                     mixed_prec=True, device=dev))
+    if inside_main is None:
+        inside_main = int((np.abs(np.linalg.eigvals(A) - c0) <= r0).sum())
+    require(panel_lu.launches > 0, "contour_estimate_eig: the panel kernel was not launched")
+    # Hutchinson's estimate with 100 probes: standard deviation near 1 here
+    require(abs(est - inside_main) <= 5,
+            f"contour_estimate_eig: {est} against {inside_main} inside")
+    out["contour_estimate_eig"] = {"n": A.shape[0], "samples": 100, "estimate": est,
+                                   "inside": inside_main, "s": t_e,
+                                   "panel_lu_launches": panel_lu.launches}
+    emit(out)
 
 
 def load_baseline(root):
@@ -1051,30 +1350,39 @@ def main(argv=None):
     base_schur = base_dia = None
     if args.baseline:
         base_schur, base_dia = load_baseline(args.baseline)
-    rows = []
-    if "k1" in phases:
-        rows.append(phase_k1(torch, panel_lu, dev))
-    if "k2" in phases:
-        rows.append(phase_k2(torch, schur_kernel, dev, base_schur))
-    if "k3" in phases:
-        rows.append(phase_k3(torch, ft, dev))
-    if "k4" in phases:
-        rows.append(phase_k4(torch, dev, base_dia))
-    if "small" in phases:
-        phase_small(torch, ft, dev)
-    launches = {}
+    walls = {}
+
+    def run(name, fn, *a):
+        if name not in phases:
+            return None
+        t1 = time.perf_counter()
+        out = fn(*a)
+        gc.collect()          # a phase's tensors held in reference cycles go too
+        torch.cuda.empty_cache()
+        walls[name] = time.perf_counter() - t1
+        return out
+
+    rows = [row for row in (run("k1", phase_k1, torch, panel_lu, dev),
+                            run("k2", phase_k2, torch, schur_kernel, dev, base_schur),
+                            run("k3", phase_k3, torch, ft, dev),
+                            run("k4", phase_k4, torch, dev, base_dia)) if row is not None]
+    run("small", phase_small, torch, ft, dev)
+    launches, inside_main = {}, None
     if "main" in phases:
         torch.cuda.reset_peak_memory_stats(dev)
-        launches = phase_main(torch, ft, dev)
-    if "profile" in phases:
-        phase_profile(torch, ft, dev)
+        launches, inside_main = run("main", phase_main, torch, ft, dev)
+    run("profile", phase_profile, torch, ft, dev)
     problem = None
     if "sparse" in phases:
-        launches["dia_spmm"], problem = phase_sparse(torch, ft, dev)
+        launches["dia_spmm"], problem = run("sparse", phase_sparse, torch, ft, dev)
     if "sparse_profile" in phases:
         if problem is None:
             ap.error("sparse_profile reuses the hierarchy of the sparse phase")
-        phase_sparse_profile(torch, ft, dev, problem)
+        run("sparse_profile", phase_sparse_profile, torch, ft, dev, problem)
+    del problem
+    run("nonlinear", phase_nonlinear, torch, ft, dev)
+    run("nonlinear_small", phase_nonlinear_small, torch, ft, dev, inside_main)
+    emit({"phase_walls_s": walls, "script_s": time.perf_counter() - t0})
     if phases != set(PHASES):
         return 0
     for row in rows:  # cmatmul carries its count from the k3 phase's dense solve

@@ -3,12 +3,16 @@
 A second package beside the JAX one (`feast_tpu/`, the unchanged
 reference).  It imports torch and never jax or feast_tpu.  It holds the
 dense mixed-precision FEAST path (`feast`, `gen_feast`, `feast_compiled`,
-with their LU, QR and eig building blocks) and the sparse iterative path
-(`feast_iterative`, `ifeast`: DIA / CSR operators, batched Krylov solvers,
-the smoothed-aggregation AMG preconditioner), and four kernels written by
-hand for Hopper (sm_90a) in `csrc/`: the panel LU of the complex64 node
-factorizations, the one-launch complex Schur decomposition of the reduced
-eigenproblem, the fp32-accurate complex64 matrix product behind
+with their LU, QR, SVD, eig and QZ building blocks), the sparse iterative
+path (`feast_iterative`, `ifeast`: DIA / CSR operators, batched Krylov
+solvers, the smoothed-aggregation AMG preconditioner), the nonlinear
+solvers (`nlfeast`, `nlfeast_moments`, `nlfeast_it`, `beyn`, `block_ss`,
+`companion`, the stochastic count `contour_estimate_eig` and the
+experimental moment variants, on the NEP types of `nep` and the problem
+gallery of `problems`), and four kernels written by hand for Hopper
+(sm_90a) in `csrc/`: the panel LU of the complex64 node factorizations,
+the one-launch complex Schur decomposition of the reduced eigenproblem,
+the fp32-accurate complex64 matrix product behind
 `cx.set_gemm_backend("cuda")`, and the complex64 DIA sparse product of the
 AMG V-cycle.
 
@@ -17,11 +21,15 @@ requested but absent.  Importing the package turns TF32 off for CUDA
 matmuls (see `_device`).
 """
 
-from . import _device, contour, cx, interop, ops, solvers
+from . import _device, contour, cx, interop, nep, ops, problems, solvers
 from .contour import (Contour, circular_contour_gauss,
                       circular_contour_trapezoidal, custom_contour,
                       elliptical_contour_trapezoidal, in_contour,
                       rational_func, rectangular_contour_gauss,
                       rectangular_contour_trapezoidal, zolotarev_contour)
-from .solvers import (FeastResult, dual_gen_feast, feast, feast_compiled,
-                      feast_iterative, gen_feast, ifeast)
+from .nep import CallableNEP, LinearPencilNEP, PolynomialNEP, SPMF
+from .solvers import (FeastResult, beyn, block_ss, companion,
+                      contour_estimate_eig, dual_gen_feast, feast,
+                      feast_compiled, feast_iterative, gen_feast, ifeast,
+                      nlfeast, nlfeast_it, nlfeast_moments,
+                      nlfeast_moments_all, nlfeast_moments_ss, nlfeast_rr)

@@ -77,6 +77,19 @@ def csqrt(a: torch.Tensor) -> torch.Tensor:
     return torch.complex(sre, torch.where(im >= 0, im_mag, -im_mag))
 
 
+def cpow_scalar(z: torch.Tensor, p: int) -> torch.Tensor:
+    """Integer power z**p by repeated squaring (the JAX package's order of
+    products)."""
+    result = torch.ones_like(z)
+    base = z
+    while p > 0:
+        if p & 1:
+            result = result * base
+        base = base * base
+        p >>= 1
+    return result
+
+
 def phase(a: torch.Tensor) -> torch.Tensor:
     """a/|a| with a -> 1 at zero (the Householder sign choice)."""
     re, im = parts(a)

@@ -9,6 +9,9 @@ a `CX` is a 2-tuple, and a contour is read through its `nodes`, `weights`,
 attributes, so both packages can be fed one hierarchy; Krylov warm starts
 are (nodes, n, m0) pairs and go through `tensor_from_pair`.  With them
 both packages solve the same problem from the same seeded inputs.
+`nep_from` carries a JAX-side SPMF / PolynomialNEP / LinearPencilNEP
+across: its coefficient matrices as numpy, its scalar functions (JAX
+callables, which cannot cross) rebuilt on the port's side or passed in.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from . import contour as ct
+from . import nep as nepmod
 from .ops import amg as amgmod
 from .ops import sparse as spmod
 
@@ -73,3 +77,22 @@ def amg_from(amg, device="cpu", dtype=None) -> amgmod.AMG:
         for L in amg.levels)
     return amgmod.AMG(levels, tensor_from_pair(amg.Ac, device, dtype),
                       tensor_from_pair(amg.Bc, device, dtype))
+
+
+def nep_from(T, funcs=None, device="cpu"):
+    """A JAX-side SPMF (or PolynomialNEP / LinearPencilNEP) -> the port's.
+
+    The coefficient matrices are read through `mats` (CX pairs).  A
+    polynomial's monomials and a pencil's (1, -z) are rebuilt here; a
+    general SPMF needs `funcs`, the port's own scalar functions, one per
+    term and in the same order."""
+    mats = [np.asarray(m.re) + 1j * np.asarray(m.im) for m in T.mats]
+    kind = type(T).__name__
+    if kind == "PolynomialNEP":
+        return nepmod.PolynomialNEP(mats, device)
+    if kind == "LinearPencilNEP":
+        return nepmod.LinearPencilNEP(mats[0], mats[1], device)
+    if funcs is None or len(funcs) != len(mats):
+        raise ValueError(f"nep_from: an SPMF of {len(mats)} terms needs as many "
+                         "port-side scalar functions")
+    return nepmod.SPMF(list(zip(mats, funcs)), device)

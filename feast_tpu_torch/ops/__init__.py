@@ -1,3 +1,4 @@
-"""Building blocks of the port: dense LU (with the panel kernel), QR, eig
-(with the Schur kernel), the complex64 matrix-product kernel, sparse
-operators (with the DIA kernel), Krylov solvers, AMG and reordering."""
+"""Building blocks of the port: dense LU (with the panel kernel), QR, SVD,
+eig (with the Schur kernel), QZ, the complex64 matrix-product kernel,
+sparse operators (with the DIA kernel), Krylov solvers, AMG and
+reordering."""

@@ -16,11 +16,14 @@ Semantics kept from the JAX package:
   * `lu_diag_inv` inverts the diagonal blocks of L and U so repeated
     solves become matmuls (`lu_solve(dinv=...)`).
 
-Dispatch: a complex64 CUDA matrix with n % 128 == 0 is factored by
+Dispatch: every complex64 CUDA matrix is factored by
 `panel_lu.lu_factor_panel`, whose panels are the hand-written Hopper
 kernel (the JAX package's gate at feast_tpu/ops/lu.py:413-415 sends f32
-matrices to its Pallas panel kernel the same way).  Everything else takes
-the plain blocked path below, as the JAX package does on the CPU.
+matrices with n % 128 == 0 to its Pallas panel kernel).  An n that is not
+a multiple of 128 is zero-padded to the next multiple, factored, and
+cropped (`factor_buffer`, `lu_factor_inplace`).  Everything else (CPU
+tensors, complex128) takes the plain blocked path below, as the JAX
+package does on the CPU.
 """
 
 from __future__ import annotations
@@ -129,11 +132,10 @@ def lu_diag_inv(LU: torch.Tensor, block: int):
     identity extension.  Multiplying by them turns every diagonal-block
     substitution of a repeated `lu_solve` into one matmul."""
     n = LU.shape[-1]
-    n_pad = -(-n // block) * block
-    LUp = _pad_identity(LU, n_pad)
-    nb = n_pad // block
-    D = torch.stack([LUp[..., j * block:(j + 1) * block,
-                         j * block:(j + 1) * block] for j in range(nb)], dim=-3)
+    # the last block takes an identity extension up to `block`; only the
+    # diagonal blocks are copied
+    D = torch.stack([_pad_identity(LU[..., j:j + block, j:j + block], block)
+                     for j in range(0, n, block)], dim=-3)
     eye = torch.eye(block, dtype=LU.dtype, device=LU.device)
     Ld = torch.tril(D, -1) + eye
     Ud = torch.triu(D)
@@ -146,19 +148,67 @@ def _auto_block(n: int) -> int:
     return 64 if n <= 512 else 128
 
 
+def _kernel_route(dtype: torch.dtype, device: torch.device) -> bool:
+    return dtype == torch.complex64 and device.type == "cuda"
+
+
+def factor_buffer(batch, n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """A zeroed (*batch, n_pad, n_pad) buffer to fill in its leading n x n
+    block and factor with `lu_factor_inplace`: n_pad is n rounded up to a
+    multiple of 128 on the kernel route (complex64 on CUDA), n elsewhere.
+    Writing the matrices straight into it spares a second copy of them."""
+    device = torch.device(device)
+    n_pad = -(-n // 128) * 128 if _kernel_route(dtype, device) else n
+    return torch.zeros(tuple(batch) + (n_pad, n_pad), dtype=dtype, device=device)
+
+
+def lu_factor_inplace(buf: torch.Tensor, n: int):
+    """Factor a `factor_buffer` whose leading n x n blocks hold the
+    matrices; returns (LU, perm) of those, LU a view of `buf`.
+
+    On the kernel route `buf` is factored in place by the panel kernel
+    (K1) at its padded size and cropped to the leading n x n block and the
+    first n entries of perm.  The padding is zeros, not an identity
+    extension:
+      * every pivot stays in A's rows: the pad rows are zero in A's columns
+        and stay zero (their multipliers are 0), and a tie, an all-zero
+        column included, goes to the lowest index, which is row k itself;
+      * A's rows stay zero in the pad columns, so no pad entry reaches the
+        leading block, and its factor is the factor of A;
+      * the zero-pivot floor eps * max|slab| keeps its value, since zeros
+        do not change a slab's largest entry (an identity extension would
+        raise it to 1 for a matrix with entries below 1);
+      * the pad columns end with zero pivots, replaced by that floor, and
+        zero multipliers: they touch nothing of A.
+    Elsewhere `buf` is n x n and takes `lu_factor`'s plain path."""
+    if not _kernel_route(buf.dtype, buf.device):
+        return lu_factor(buf)
+    from . import panel_lu
+
+    LU, perm = panel_lu.lu_factor_panel(buf, inplace=True)
+    return LU[..., :n, :n], perm[..., :n]
+
+
 def lu_factor(A: torch.Tensor, block: int = 0):
     """Blocked LU with partial pivoting: P A = L U, over leading batch dims.
 
     Returns (LU, perm): L (unit diagonal) and U packed in LU, and perm the
     row permutation as an index vector (`lu_solve` uses B[perm]).
-    block=0 picks the panel width from n."""
+    block=0 picks the panel width from n; the kernel route (complex64 on
+    CUDA) takes panels of `block` (default 128) columns when n is a
+    multiple of 128, and of 128 on the zero-padded matrix otherwise
+    (`lu_factor_inplace`)."""
     n = A.shape[-1]
     if A.shape[-2] != n:
         raise ValueError(f"lu_factor expects square matrices, got {tuple(A.shape)}")
-    if A.dtype == torch.complex64 and A.is_cuda and n % 128 == 0:
+    if _kernel_route(A.dtype, A.device):
         from . import panel_lu
 
-        return panel_lu.lu_factor_panel(A, block=block or 128)
+        if n % 128 == 0:
+            return panel_lu.lu_factor_panel(A, block=block or 128)
+        buf = factor_buffer(A.shape[:-2], n, A.dtype, A.device)
+        buf[..., :n, :n] = A
+        return lu_factor_inplace(buf, n)
     A3, batch = _flat(A, 2)
     A3 = A3.clone()
     block = block or _auto_block(n)

@@ -180,18 +180,22 @@ def panel_factor_plain(slab: torch.Tensor, j0: int):
     return slab, perm.to(torch.int32), torch.complex(Xr, Xi)
 
 
-def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor):
+def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor,
+                    inplace: bool = False):
     """Blocked LU with partial pivoting through `panel_factor`, over leading
     batch dims; n % block == 0.  Same contract as `lu.lu_factor`.
 
     panel: the panel step; `panel_factor_plain` runs the plain version on
-    any device (to hold the kernel against it)."""
+    any device (to hold the kernel against it).  inplace: factor A itself
+    (contiguous) instead of a copy."""
     n = A.shape[-1]
     if A.shape[-2] != n or n % block != 0:
         raise ValueError(f"lu_factor_panel needs square (..., n, n) with "
                          f"n % block == 0 (shape {tuple(A.shape)}, block={block})")
+    if inplace and not A.is_contiguous():
+        raise ValueError("lu_factor_panel(inplace=True) needs a contiguous tensor")
     batch = A.shape[:-2]
-    A3 = A.reshape(-1, n, n).clone()
+    A3 = A.reshape(-1, n, n) if inplace else A.reshape(-1, n, n).clone()
     perm = torch.arange(n, device=A.device).repeat(A3.shape[0], 1)
     for j in range(0, n, block):
         e = j + block

@@ -5,7 +5,8 @@ Counterpart of `feast_tpu/ops/qr.py` on native complex tensors, with the
 same guards: a relative pivot floor and the phase-preserving clamp of the
 Cholesky columns (a rank-deficient Gram stays finite), eps^2 substitution
 of zero diagonals in the triangular solves, and the max-abs column
-pre-scaling of `colscale_unit`.  Householder QR is not ported yet.
+pre-scaling of `colscale_unit`; and Householder QR for subspaces whose
+Gram CholeskyQR cannot factor.
 """
 
 from __future__ import annotations
@@ -109,6 +110,40 @@ def cholqr3(A: torch.Tensor):
     return Q3, R3 @ (R2 @ R1)
 
 
+def _reflector_beta(v: torch.Tensor) -> torch.Tensor:
+    """2 / ||v||^2, and 0 for a vector below eps in norm (no reflection)."""
+    eps = torch.finfo(cx.real_dtype(v.dtype)).eps
+    vnorm2 = torch.sum(cx.abs2(v))
+    return torch.where(vnorm2 > eps * eps,
+                       2.0 / torch.where(vnorm2 > 0, vnorm2, 1.0), 0.0)
+
+
+def householder_qr(A: torch.Tensor):
+    """Thin Householder QR of (n, m), n >= m: returns (Q (n, m), R (m, m)).
+
+    m reflections in order, each a rank-1 update of the whole matrix; the
+    thin Q is formed by applying them backwards to the first m columns of
+    the identity."""
+    n, m = A.shape
+    A = A.clone()
+    V = torch.zeros_like(A)
+    rows = torch.arange(n, device=A.device)
+    for k in range(m):
+        x = torch.where(rows >= k, A[:, k], 0.0)
+        normx = torch.sqrt(torch.sum(cx.abs2(x)))
+        v = x.clone()
+        v[k] = v[k] + cx.phase(x[k]) * normx
+        beta = _reflector_beta(v)
+        A -= beta * torch.outer(v, v.conj() @ A)
+        V[:, k] = v
+    R = torch.triu(A[:m])
+    Q = torch.eye(n, m, dtype=A.dtype, device=A.device)
+    for k in range(m - 1, -1, -1):
+        v = V[:, k]
+        Q -= _reflector_beta(v) * torch.outer(v, v.conj() @ Q)
+    return Q, R
+
+
 def colscale_unit(A: torch.Tensor) -> torch.Tensor:
     """Scale columns to unit 2-norm with a max-abs pre-scale, so columns
     with tiny entries do not underflow the squared-norm sum."""
@@ -127,5 +162,5 @@ def orthonormalize(A: torch.Tensor, method: str = "cholqr2") -> torch.Tensor:
     if method == "cholqr3":
         return cholqr3(A)[0]
     if method == "householder":
-        raise NotImplementedError("householder_qr is not ported yet")
+        return householder_qr(A)[0]
     raise ValueError(f"unknown method {method}")

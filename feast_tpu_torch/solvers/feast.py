@@ -15,7 +15,7 @@ on the card) and each solve is refined by 2 steps of complex128 iterative
 refinement, each residual one wide matmul over all nodes.
 
 Not ported yet (they raise NotImplementedError): `mesh`, `node_loop=True`,
-`rr="host"`, `pencil="qz"`/`"hermitian"` (and `hermitian=True`), and
+`rr="host"`, `pencil="hermitian"` (and `hermitian=True`), and
 `dual_gen_feast`.  `node_scan` only chose a memory layout in the JAX
 package; the batched layout here serves every size it did, so the flag is
 accepted and has no effect.
@@ -166,12 +166,18 @@ def _node_update_scan(LUb, permb, z, w, X, R, lam, solve_dtype, A, B,
 
 
 def _rayleigh_ritz(Q, A, B, pencil: str = "lu"):
-    """Orthonormal-basis Rayleigh-Ritz: (lam, X, R, res)."""
-    if pencil != "lu":
+    """Orthonormal-basis Rayleigh-Ritz: (lam, X, R, res).  pencil="qz"
+    solves the projected pencil by QZ instead of the B^{-1} A reduction."""
+    if pencil not in ("lu", "qz"):
         _unported(f'pencil="{pencil}"')
     Aq = cx.cgram(Q, A @ Q)
     if B is None:
         lam, Xq = eigmod.eig(Aq)
+    elif pencil == "qz":
+        from ..ops import qz as qzmod
+
+        alpha, beta, Xq = qzmod.gen_eig_qz(Aq, cx.cgram(Q, B @ Q))
+        lam = cx.cdiv(alpha, beta)
     else:
         lam, Xq = eigmod.gen_eig(Aq, cx.cgram(Q, B @ Q))
     X = cx.normalize_cols(Q @ Xq)
@@ -187,7 +193,7 @@ def _check_unported(mesh=None, rr="device", node_loop=None, pencil="lu"):
         _unported("node_loop=True")
     if rr != "device":
         _unported(f'rr="{rr}"')
-    if pencil != "lu":
+    if pencil not in ("lu", "qz"):
         _unported(f'pencil="{pencil}"')
 
 

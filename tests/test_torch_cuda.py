@@ -400,3 +400,45 @@ def test_schur_warp_kernel_diagonal_input(dev):
     assert int(st[0]) == 0 and torch.equal(T, A)
     assert float((Z.mH @ Z - eye).abs().max()) < 1e-6
     assert float((X @ Y - eye).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("n", [200, 1000, 4100, 9956])
+def test_padded_panel_route_bit_equal(dev, n):
+    """An n that is no multiple of 128 goes to the panel kernel zero-padded
+    to the next multiple: bit for bit the plain version on the padded
+    matrix, cropped, one launch per padded panel."""
+    batch = 1 if n > 4096 else 2
+    n_pad = -(-n // 128) * 128
+    g = torch.Generator(device=dev).manual_seed(n)
+    A = torch.randn((batch, n, n), dtype=torch.complex64, device=dev, generator=g)
+    before = panel_lu.launches
+    LU, perm = lu.lu_factor(A)
+    assert panel_lu.launches - before == n_pad // 128
+    assert LU.shape == (batch, n, n) and perm.shape == (batch, n)
+    buf = torch.zeros((batch, n_pad, n_pad), dtype=A.dtype, device=dev)
+    buf[:, :n, :n] = A
+    LUp, permp = panel_lu.lu_factor_panel(buf, panel=panel_lu.panel_factor_plain,
+                                          inplace=True)
+    assert torch.equal(perm, permp[:, :n])
+    assert torch.equal(LU, LUp[:, :n, :n])
+    assert int(perm.max()) < n
+
+
+def test_nlfeast_mixed_on_card_matches_cpu(dev):
+    """A small gun-shaped nlfeast(mixed_prec=True) on the card: the node
+    factors through the padded panel kernel (n = 200), the Beyn matrix's
+    Schur seed through the Schur kernel; eigenvalues equal to the CPU run's
+    to 1e-10."""
+    kw = dict(nodes=16, iters=10, c=53.0 + 0.0j, r=5.0, tol=1e-10, spurious=1e-5,
+              mixed_prec=True, store=False, factor_chunk=4)
+    rng = np.random.default_rng(3)
+    X0 = rng.standard_normal((200, 30)) + 1j * rng.standard_normal((200, 30))
+    gkw = dict(planted=12, cluster=(50.0, 56.0))
+    k1, k2 = panel_lu.launches, schur_kernel.launches
+    out = ft.nlfeast(ft.problems.gun_like(200, device=dev, **gkw), X0, device=dev, **kw)
+    assert panel_lu.launches > k1 and schur_kernel.launches > k2
+    ref = ft.nlfeast(ft.problems.gun_like(200, device="cpu", **gkw), X0, device="cpu", **kw)
+    lam, _, res = out.filtered(spurious=1e-5)
+    lam_c, _, _ = ref.filtered(spurious=1e-5)
+    assert out.converged and len(lam) == len(lam_c) == 12 and res.max() < 1e-10
+    np.testing.assert_allclose(np.sort_complex(lam), np.sort_complex(lam_c), atol=1e-10)

@@ -151,6 +151,8 @@ def test_backend_switches_validate():
         teig.set_schur_backend("pallas")
     with pytest.raises(ValueError):
         teig.set_eig_mode("fast")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tqr.orthonormalize(torch.ones((4, 2), dtype=torch.complex128),
-                           method="householder")
+                           method="givens")
+    Q = tqr.orthonormalize(torch.eye(4, 2, dtype=torch.complex128), method="householder")
+    assert torch.allclose(Q.mH @ Q, torch.eye(2, dtype=torch.complex128), atol=1e-15)
