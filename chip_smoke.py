@@ -17,9 +17,12 @@ Phases, each printing one JSON line:
           with torch.linalg.lu_factor as a library yardstick; the zero-padded
           route at the nonlinear path's n = 9956 (padded to 9,984, 4 nodes)
           bit for bit against the plain version on the padded matrix, and
-          its launches timed at the first and the last two panels
+          its launches timed at the first and the last two panels; the same
+          route bit for bit at the unstructured path's dense coarse level
+          (n = 447, padded to 512, one node)
   k2      the Schur kernel against its plain version at n = 2, 8 (the sparse
-          path's m0), 48 (the dense path's) and 84 (the nonlinear path's),
+          path's m0), 10 (the unstructured path's), 48 (the dense path's) and
+          84 (the nonlinear path's),
           and at 128 against LAPACK's eigenvalues: invariants, sweeps and
           rotation steps, ptxas registers, with torch.linalg.eig as a
           yardstick; then its time and invariants at n = 64, 96, 112 and at
@@ -53,7 +56,8 @@ Phases, each printing one JSON line:
           5-point stiffness, B = M (x) M 9-point mass, N = 1000, lowest slice,
           m0 = 8, 8 nodes, AMG on strength aggregates with a complex64 V-cycle,
           bicgstab_rr): the DIA kernel's launches counted over the solve and
-          by level (each DIA level's offsets printed), eigenvalues against the
+          by level (each DIA level's offsets, and every level's A, P and R
+          format and block size, printed), eigenvalues against the
           exact separable spectrum, residuals recomputed on the host with
           scipy in float64; and a Jacobi-preconditioned complex64 Krylov
           solve at N = 200 that launches the DIA kernel outside AMG
@@ -61,6 +65,26 @@ Phases, each printing one JSON line:
           (Rayleigh-Ritz, node solves, V-cycle share), and one under
           torch.profiler: device busy share, the DIA kernel's device time and
           share, top kernels
+  dense_variants  feast(store=True, mixed_prec=True) on the main phase's
+          problem, stacked, then with node_loop=True and with rr="host", each
+          held to the stacked solve (the same iterations, eigenvalues to
+          1e-10); hermitian=True on diag(1..n) + 0.05 (G + G^H) / 2 against
+          numpy's eigvalsh; dual_gen_feast(mixed_prec=True) with B = I, right
+          and left residuals on the host in float64 (below 1e-10 and 1e-8);
+          the panel and Schur kernels' launches and the wall of each case
+  fastdiag  the sparse phase's 1M-dof pencil and slice with the
+          fast-diagonalization preconditioner (form "kron", float32
+          transforms) in place of AMG: setup and solve seconds, sweeps,
+          BiCGStab iterations per node and sweep, the checks of the sparse
+          phase
+  unstructured  benchmarks/unstructured100k.py in process: the P1 FEM pencil
+          on 100,000 random points (n = 99,975), lowest slice, m0 = 10, 8
+          nodes, reorder "auto" (RCM, then BELL), AMG with a complex64
+          V-cycle, node_chunk 1; converged, the exact slice's count (scipy
+          eigsh), eigenvalues to 1e-9 relative, host residuals below 1e-10;
+          each AMG level's format, and the level-0 BELL product's ms at every
+          candidate block size beside the port's CSR product and
+          torch.sparse.mm on complex64 CSR
   nonlinear  the reference's gun configuration: gun_like(9956, seed=0,
           planted=25) built on the card, then nlfeast(mixed_prec=True,
           store=False; 16 nodes, c=105, r=8, m0=84, tol 1e-10) from
@@ -93,8 +117,9 @@ import time
 
 import numpy as np
 
-PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "sparse",
-          "sparse_profile", "nonlinear", "nonlinear_small")
+PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "dense_variants",
+          "sparse", "sparse_profile", "fastdiag", "unstructured", "nonlinear",
+          "nonlinear_small")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32, outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # H100 SXM TF32 tensor cores, dense
@@ -264,6 +289,8 @@ def phase_k1(torch, panel_lu, dev):
     del Afull
     torch.cuda.empty_cache()
     out["padded_gun"] = k1_padded(torch, panel_lu, dev, gen)
+    # the unstructured phase's coarse level: 447 columns, one node a launch
+    out["padded_coarse_447"] = k1_padded(torch, panel_lu, dev, gen, B=1, n=447, timed=False)
     emit(out)
     return {"name": "panel_lu", "route": "cuda",
             "source": "feast_tpu_torch/csrc/panel_lu.cu",
@@ -305,15 +332,15 @@ def panel_timing(torch, panel_lu, A, j0, b=128):
 GUN_N, GUN_M0 = 9956, 84
 
 
-def k1_padded(torch, panel_lu, dev, gen, B=4):
-    """The zero-padded route at the gun's n = 9956 (padded to 9,984: 78
-    panels), B nodes as one factor chunk of the nonlinear path:
-    `lu.lu_factor` on the card bit for bit against lu_factor_panel(pad(A),
-    plain version), cropped; then one launch timed at the first panel, the
-    last one of A's columns only (j0 = 9728) and the last one (j0 = 9856:
-    100 columns of A, 28 of padding)."""
+def k1_padded(torch, panel_lu, dev, gen, B=4, n=GUN_N, timed=True):
+    """The zero-padded route at n (the gun's 9956, padded to 9,984: 78
+    panels; or the unstructured AMG's coarse 447, padded to 512, B = 1 as
+    its node_chunk gives it), B nodes as one factor chunk: `lu.lu_factor`
+    on the card bit for bit against lu_factor_panel(pad(A), plain
+    version), cropped; then, if timed, one launch timed at the first
+    panel, the last one of A's columns only (j0 = 9728) and the last one
+    (j0 = 9856: 100 columns of A, 28 of padding)."""
     lumod = importlib.import_module("feast_tpu_torch.ops.lu")
-    n = GUN_N
     n_pad = -(-n // 128) * 128
     A = torch.randn((B, n, n), dtype=torch.complex64, device=dev, generator=gen)
     before = panel_lu.launches
@@ -331,10 +358,15 @@ def k1_padded(torch, panel_lu, dev, gen, B=4):
     torch.cuda.synchronize()
     t_plain = time.perf_counter() - t0
     require(launches == n_pad // 128, f"k1 padded: {launches} launches, {n_pad // 128} panels")
-    require(torch.equal(perm, permp[:, :n]), "k1 padded n=9956: perm differs from plain")
-    require(torch.equal(LU, LUp[:, :n, :n]), "k1 padded n=9956: LU not bit-equal to plain")
-    require(int(perm.max()) < n, "k1 padded n=9956: a pad row was chosen as a pivot")
+    require(torch.equal(perm, permp[:, :n]), f"k1 padded n={n}: perm differs from plain")
+    require(torch.equal(LU, LUp[:, :n, :n]), f"k1 padded n={n}: LU not bit-equal to plain")
+    require(int(perm.max()) < n, f"k1 padded n={n}: a pad row was chosen as a pivot")
     del LU, perm, LUp, permp
+    out = {"n": n, "n_pad": n_pad, "batch": B, "bit_equal": True,
+           "launches_per_factor": launches, "route_factor_s": t_route,
+           "plain_factor_s": t_plain}
+    if not timed:
+        return out
     buf.zero_()
     buf[:, :n, :n] = A
     del A
@@ -343,9 +375,7 @@ def k1_padded(torch, panel_lu, dev, gen, B=4):
               for j0 in (0, n_pad - 256, n_pad - 128)}
     del buf
     torch.cuda.empty_cache()
-    return {"n": n, "n_pad": n_pad, "batch": B, "bit_equal": True,
-            "launches_per_factor": launches, "route_factor_s": t_route,
-            "plain_factor_s": t_plain, "timing": timing}
+    return dict(out, timing=timing)
 
 
 # ---------------------------------------------------------------------------
@@ -415,13 +445,14 @@ def phase_k2(torch, schur_kernel, dev, base=None):
     row = None
     gen = torch.Generator(device=dev).manual_seed(2)
     # drawn in this order so that n = 2, 48, 128 keep their earlier inputs;
-    # n = 84 (the nonlinear path's m0) from a generator of its own, so that
-    # the later draws keep theirs too
+    # n = 84 (the nonlinear path's m0) and n = 10 (the unstructured path's)
+    # from generators of their own, so that the later draws keep theirs too
     mats = {n: torch.randn((n, n), dtype=torch.complex64, device=dev, generator=gen)
             for n in (2, 48, 128, 8)}
-    mats[84] = torch.randn((84, 84), dtype=torch.complex64, device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(84))
-    for n in (2, 8, 48, 84, 128):
+    for n in (84, 10):
+        mats[n] = torch.randn((n, n), dtype=torch.complex64, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(n))
+    for n in (2, 8, 10, 48, 84, 128):
         A = mats[n]
         T, Z, Y, X, st = schur_kernel.schur(A, want_y=True, return_stats=True)
         checks = {"sweeps": int(st[0]), "work": int(st[1])}
@@ -868,16 +899,25 @@ def phase_profile(torch, ft, dev):
 # the sparse iterative path
 # ---------------------------------------------------------------------------
 
-def build_pencil(N):
-    """2-D tensor pencil on an N x N grid: K = T (+) T (5-point stiffness),
-    B = M (x) M (9-point bilinear mass, M = tridiag(1, 4, 1) / 6), and the
-    exact separable spectrum (t_i + t_j) / (m_i m_j), sorted."""
+def grid_factors(N):
+    """The 1-D stiffness T = tridiag(-1, 2, -1) and mass M = tridiag(1, 4, 1) / 6
+    whose Kronecker sums and products make `build_pencil`'s pencil."""
     import scipy.sparse as sp
 
     T1 = sp.diags([np.full(N, 2.0), -np.ones(N - 1), -np.ones(N - 1)],
                   [0, 1, -1], format="csr")
     M1 = sp.diags([np.full(N, 4 / 6), np.full(N - 1, 1 / 6),
                    np.full(N - 1, 1 / 6)], [0, 1, -1], format="csr")
+    return T1, M1
+
+
+def build_pencil(N):
+    """2-D tensor pencil on an N x N grid: K = T (+) T (5-point stiffness),
+    B = M (x) M (9-point bilinear mass, M = tridiag(1, 4, 1) / 6), and the
+    exact separable spectrum (t_i + t_j) / (m_i m_j), sorted."""
+    import scipy.sparse as sp
+
+    T1, M1 = grid_factors(N)
     I = sp.identity(N, format="csr")
     K = (sp.kron(T1, I) + sp.kron(I, T1)).tocsr().astype(np.complex128)
     B = sp.kron(M1, M1).tocsr().astype(np.complex128)
@@ -1029,6 +1069,9 @@ def phase_sparse(torch, ft, dev, N=1000):
                       getattr(L.A_op, "ndiag", None), type(L.P).__name__,
                       list(getattr(L.A_op, "offsets", ()))]
                      for L in amg.levels] + [["dense", amg.Ac.shape[0], None, None, []]],
+          "formats_A_bs_P_bs_R_bs": [[x for op in (L.A_op, L.P, L.R)
+                                      for x in (type(op).__name__, getattr(op, "bs", None))]
+                                     for L in amg.levels],
           "dia_launches_by_rows": per_level,
           "peak_mem_gb": peak, "jacobi_complex64_n40000": jacobi})
     return launches["dia_spmm"], (K, B, X0, c, r, amg)
@@ -1296,6 +1339,272 @@ def phase_nonlinear_small(torch, ft, dev, inside_main=None, n=2048, bench_n=4096
     emit(out)
 
 
+# ---------------------------------------------------------------------------
+# the other dense drivers, fastdiag, and the unstructured pencil (BELL)
+# ---------------------------------------------------------------------------
+
+def _inside_sorted(res):
+    lam, X, _ = res.filtered()
+    order = np.argsort(lam.real)
+    return lam[order], X[:, order]
+
+
+def phase_dense_variants(torch, ft, dev, n=4096):
+    """The dense drivers' other options on bench.py's headline problem
+    (n = 4096, m0 = 48, 16 nodes, c = 20, r = 22, tol 1e-10, mixed_prec):
+    feast(store=True) stacked, then node_loop=True and rr="host", each held
+    to the stacked solve (the same iteration count, inside eigenvalues to
+    1e-10); hermitian=True on diag(1..n) + 0.05 (G + G^H) / 2 (G from seed
+    0) against numpy's eigvalsh; dual_gen_feast(mixed_prec=True) with B = I,
+    right and left residuals recomputed on the host in float64.  Each case
+    counts its panel-kernel and Schur-kernel launches."""
+    panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
+    schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
+    A, X0, c, r = bench_problem(n=n)
+    At, Xt = torch.as_tensor(A, device=dev), torch.as_tensor(X0, device=dev)
+    kw = dict(c=c, r=r, nodes=16, iters=20, tol=1e-10, mixed_prec=True, device=dev)
+    cases = {}
+
+    def run(label, fn):
+        panel_lu.launches = schur_kernel.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        cases[label] = {"wall_s": time.perf_counter() - t0, "iterations": res.n_iter,
+                        "converged": bool(res.converged),
+                        "k1_launches": panel_lu.launches, "k2_launches": schur_kernel.launches,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        require(res.converged, f"dense_variants: {label} not converged")
+        require(panel_lu.launches > 0, f"dense_variants: {label} launched no panel kernel")
+        return res
+
+    stacked = run("stacked", lambda: ft.feast(At, Xt, store=True, **kw))
+    lam_s, _ = _inside_sorted(stacked)
+    require(schur_kernel.launches > 0, "dense_variants: stacked launched no Schur kernel")
+    for label, extra in (("node_loop", {"node_loop": True}), ("rr_host", {"rr": "host"})):
+        res = run(label, lambda: ft.feast(At, Xt, store=True, **extra, **kw))
+        lam, X = _inside_sorted(res)
+        rr = np.linalg.norm(A @ X - X * lam[None, :], axis=0)
+        diff = float(np.max(np.abs(lam - lam_s))) if len(lam) == len(lam_s) else np.inf
+        cases[label].update(inside=int(len(lam)), max_diff_vs_stacked=diff,
+                            max_residual_host_f64=float(rr.max()))
+        require(res.n_iter == stacked.n_iter and diff < 1e-10,
+                f"dense_variants: {label} n_iter {res.n_iter} vs {stacked.n_iter}, "
+                f"eigenvalues {diff} from the stacked solve")
+        require(rr.max() < 1e-10, f"dense_variants: {label} host residual {rr.max()}")
+    require(cases["node_loop"]["k2_launches"] > 0,
+            "dense_variants: node_loop launched no Schur kernel")
+    cases["stacked"]["inside"] = int(len(lam_s))
+
+    G = np.random.default_rng(0)
+    G = G.standard_normal((n, n)) + 1j * G.standard_normal((n, n))
+    H = np.diag(np.arange(1.0, n + 1.0)) + 0.05 * (G + G.conj().T) / 2
+    del G
+    t0 = time.perf_counter()
+    ref = np.linalg.eigvalsh(H)
+    ref_s = time.perf_counter() - t0
+    ref = ref[np.abs(ref - c) <= r]
+    Ht = torch.as_tensor(H, device=dev)
+    res = run("hermitian", lambda: ft.feast(Ht, Xt, hermitian=True, **kw))
+    lam, X = _inside_sorted(res)
+    require(len(lam) == len(ref), f"dense_variants: hermitian {len(lam)} inside, eigvalsh {len(ref)}")
+    err = float(np.max(np.abs(lam - ref)))
+    rr = np.linalg.norm(H @ X - X * lam[None, :], axis=0)
+    require(err < 1e-10 and rr.max() < 1e-10,
+            f"dense_variants: hermitian eigenvalues {err} from eigvalsh, residual {rr.max()}")
+    cases["hermitian"].update(inside=int(len(lam)), max_err_vs_eigvalsh=err,
+                              max_residual_host_f64=float(rr.max()), eigvalsh_host_s=ref_s)
+    del Ht, H
+
+    It = torch.eye(n, dtype=torch.complex128, device=dev)
+    res = run("dual", lambda: ft.dual_gen_feast(At, It, Xt, Xt.clone(), **kw))
+    lam, Xr, Xl, _ = res.filtered()
+    right = np.linalg.norm(A @ Xr - Xr * lam[None, :], axis=0)
+    left = np.linalg.norm(Xl.conj().T @ A - lam[:, None] * Xl.conj().T, axis=1)
+    require(len(lam) == len(lam_s), f"dense_variants: dual {len(lam)} inside, stacked {len(lam_s)}")
+    require(right.max() < 1e-10 and left.max() < 1e-8,
+            f"dense_variants: dual right {right.max()}, left {left.max()}")
+    cases["dual"].update(inside=int(len(lam)), max_right_residual_host_f64=float(right.max()),
+                         max_left_residual_host_f64=float(left.max()))
+    emit({"phase": "dense_variants", "n": n, "m0": 48, "nodes": 16, "tol": 1e-10,
+          "cases": cases})
+
+
+def phase_fastdiag(torch, ft, dev, N=1000):
+    """The sparse phase's 1M-dof pencil and slice, with the node solves
+    preconditioned by fast diagonalization (`ops/fastdiag.py`, form "kron",
+    float32 transforms) instead of AMG: benchmarks/sparse1m.py's --fd
+    configuration."""
+    fastdiag = importlib.import_module("feast_tpu_torch.ops.fastdiag")
+    krylov = importlib.import_module("feast_tpu_torch.ops.krylov")
+    schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
+    K, B, lam = build_pencil(N)
+    T1, M1 = grid_factors(N)
+    c, r = lowest_slice(lam)
+    exact = lam[np.abs(lam - c) <= r]
+    X0 = np.random.default_rng(0)
+    X0 = X0.standard_normal((N * N, 8)) + 1j * X0.standard_normal((N * N, 8))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fd = fastdiag.build(A1=T1, B1=M1, form="kron", dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    iters_log, rr_solver = [], krylov.bicgstab_rr
+
+    def logged_solver(*a, **k):
+        sol = rr_solver(*a, **k)
+        iters_log.append(sol.iters.cpu().tolist())
+        return sol
+
+    kw = {k: v for k, v in SPARSE_KW.items() if k != "precondition"}
+    schur_kernel.launches = 0
+    with Patched((krylov, "bicgstab_rr", logged_solver)):
+        t0 = time.perf_counter()
+        res = ft.feast_iterative(K, B, X0, c=c, r=r, device=dev,
+                                 precondition=fastdiag.preconditioner(fd), **kw)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+    lamf, Xf = _inside_sorted(res)
+    host_res = np.linalg.norm(K @ Xf - (B @ Xf) * lamf[None, :], axis=0)
+    require(res.converged, "fastdiag: not converged")
+    require(len(lamf) == len(exact) == 6, f"fastdiag: {len(lamf)} inside, exact {len(exact)}")
+    relerr = float(np.max(np.abs(lamf - exact) / exact))
+    require(relerr < 1e-9, f"fastdiag: eigenvalue relative error {relerr}")
+    require(np.isfinite(host_res).all() and host_res.max() < 1e-10,
+            f"fastdiag: host residual {host_res.max()}")
+    require(schur_kernel.launches > 0, "fastdiag: the Rayleigh-Ritz launched no Schur kernel")
+    emit({"phase": "fastdiag", "N": N, "n": N * N, "m0": 8, "nodes": 8,
+          "inside": int(len(lamf)), "iterations": res.n_iter, "sweeps": res.n_sweeps,
+          "max_eig_relerr": relerr, "max_residual_host_f64": float(host_res.max()),
+          "setup_s": setup_s, "solve_s": solve_s,
+          "bicgstab_iters_per_sweep_per_node": iters_log,
+          "k2_launches": schur_kernel.launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+
+
+def _level_format(spmod, op):
+    """Format of one AMG level operator: [kind, rows, bs, kmax, fill, spill nnz]."""
+    if isinstance(op, spmod.BELL):
+        spill = 0 if op.spill is None else op.spill.nnz
+        stored = op.data.shape[-3] * op.data.shape[-2] * op.data.shape[-1]
+        nnz = int(op.data.count_nonzero()) + spill
+        return ["BELL", op.shape[0], op.bs, op.kmax, stored / max(nnz, 1), spill]
+    return [type(op).__name__, op.shape[0], None, None, None, None]
+
+
+def phase_unstructured(torch, ft, dev, n_points=100_000):
+    """benchmarks/unstructured100k.py in process: the lowest slice of the P1
+    FEM pencil on a Delaunay triangulation of 100,000 random points (n =
+    99,975), m0 = 10, 8 nodes, tol 1e-10, reorder="auto" (RCM, then BELL),
+    AMG with a complex64 V-cycle, bicgstab_rr (solve_tol 1e-9, 200
+    iterations), node_chunk 1, at most 10 sweeps; the exact slice by scipy's
+    shift-invert eigsh.  Prints each AMG level's format and the BELL
+    product's time at level 0 for every candidate block size, beside the
+    port's CSR product and torch.sparse.mm."""
+    import scipy.sparse.linalg as spl
+
+    spmod = importlib.import_module("feast_tpu_torch.ops.sparse")
+    amgmod = importlib.import_module("feast_tpu_torch.ops.amg")
+    krylov = importlib.import_module("feast_tpu_torch.ops.krylov")
+    rdmod = importlib.import_module("feast_tpu_torch.ops.reorder")
+    panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
+    schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
+    t0 = time.perf_counter()
+    K, M, _ = ft.problems.fem2d_unstructured(n_points, seed=1)
+    n = K.shape[0]
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = np.sort(spl.eigsh(K.real.tocsc(), k=10, M=M.real.tocsc(), sigma=0,
+                              which="LM", return_eigenvectors=False))
+    exact_s = time.perf_counter() - t0
+    c = (exact[0] + exact[5]) / 2
+    r = (exact[5] - exact[0]) / 2 + 0.4 * (exact[6] - exact[5])
+    want = exact[np.abs(exact - c) <= r]
+    rng = np.random.default_rng(3)
+    X0 = rng.standard_normal((n, 10)) + 1j * rng.standard_normal((n, 10))
+
+    kept, iters_log = {}, []
+    build_amg, rr_solver = amgmod.build_amg, krylov.bicgstab_rr
+
+    def timed_build(*a, **k):
+        t0 = time.perf_counter()
+        kept["amg"] = build_amg(*a, **k)
+        torch.cuda.synchronize()
+        kept["setup_s"] = time.perf_counter() - t0
+        return kept["amg"]
+
+    def logged_solver(*a, **k):
+        sol = rr_solver(*a, **k)
+        iters_log.append(sol.iters.cpu().tolist())
+        return sol
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    panel_lu.launches = schur_kernel.launches = 0
+    with Patched((amgmod, "build_amg", timed_build), (krylov, "bicgstab_rr", logged_solver)):
+        t0 = time.perf_counter()
+        res = ft.feast_iterative(K, M, X0, c=complex(c), r=float(r), nodes=8, iters=10,
+                                 tol=1e-10, precondition="amg", solver="bicgstab_rr",
+                                 solve_tol=1e-9, solve_iters=200, reorder="auto",
+                                 node_chunk=1, amg_opts={"dtype": torch.float32},
+                                 device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"panel_lu": panel_lu.launches, "schur": schur_kernel.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    lamf, Xf = _inside_sorted(res)
+    host_res = np.linalg.norm(K @ Xf - (M @ Xf) * lamf[None, :], axis=0)
+    require(res.converged, "unstructured: not converged")
+    require(len(lamf) == len(want), f"unstructured: {len(lamf)} inside, exact {len(want)}")
+    relerr = float(np.max(np.abs(lamf.real - want) / want))
+    require(relerr < 1e-9, f"unstructured: eigenvalue relative error {relerr}")
+    require(np.isfinite(host_res).all() and host_res.max() < 1e-10,
+            f"unstructured: host residual {host_res.max()}")
+    require(launches["panel_lu"] > 0 and launches["schur"] > 0,
+            f"unstructured: kernel launches {launches}")
+    amg = kept["amg"]
+    levels = [_level_format(spmod, L.A_op) + [type(L.P).__name__] for L in amg.levels]
+    levels.append(["dense", amg.Ac.shape[0], None, None, None, None, None])
+    require(any(row[0] == "BELL" for row in levels), f"unstructured: no BELL level: {levels}")
+
+    # the level-0 product of the V-cycle (one node, m0 = 10 columns, complex64)
+    # at every candidate block size, on the pencil as the driver permutes it
+    perm, _ = rdmod.plan_reorder(K, M)
+    Kp = K if perm is None else K[perm][:, perm].tocsr()
+    Xd = torch.randn((1, n, 10), dtype=torch.complex64, device=dev)
+    bell_ms = {}
+    for bs in spmod._BELL_CANDIDATE_BS:
+        op = spmod.BELL.from_scipy(Kp, bs, torch.complex64, device=dev)
+        op.matvec(Xd)
+        bell_ms[bs] = {"ms": cuda_ms(lambda: op.matvec(Xd), reps=20), "kmax": op.kmax,
+                       "spill_nnz": 0 if op.spill is None else op.spill.nnz}
+        del op
+    Kcsr = torch.sparse_csr_tensor(torch.as_tensor(Kp.indptr, device=dev),
+                                   torch.as_tensor(Kp.indices, device=dev),
+                                   torch.as_tensor(Kp.data, dtype=torch.complex64, device=dev),
+                                   Kp.shape)
+    torch.sparse.mm(Kcsr, Xd[0])         # warm: the library's handle
+    csr_ms = cuda_ms(lambda: torch.sparse.mm(Kcsr, Xd[0]), reps=20)
+    csr_port = spmod.CSR.from_scipy(Kp, torch.complex64, dev)
+    csr_port.matvec(Xd)
+    csr_port_ms = cuda_ms(lambda: csr_port.matvec(Xd), reps=20)
+    emit({"phase": "unstructured", "n": n, "nnz": int(K.nnz), "m0": 10, "nodes": 8,
+          "inside": int(len(lamf)), "want": int(len(want)), "iterations": res.n_iter,
+          "sweeps": res.n_sweeps, "max_eig_relerr": relerr,
+          "max_residual_host_f64": float(host_res.max()), "wall_s": wall,
+          "amg_setup_s": kept["setup_s"], "solve_s": wall - kept["setup_s"],
+          "pencil_build_s": build_s, "eigsh_s": exact_s,
+          "levels_kind_rows_bs_kmax_fill_spill_P": levels,
+          "picked_bs_level0": spmod.bell_pick_bs(Kp, torch.complex64),
+          "bell_level0_ms_by_bs": bell_ms, "torch_sparse_csr_mm_ms": csr_ms,
+          "port_csr_ms": csr_port_ms,
+          "bicgstab_iters_per_sweep_per_node": iters_log,
+          "launches_per_solve": launches, "peak_mem_gb": peak})
+
+
 def load_baseline(root):
     """The K2 and K4 wrappers (ops.schur_kernel, ops.dia_kernel) of the
     feast_tpu_torch package of another checkout, imported under another
@@ -1372,6 +1681,7 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats(dev)
         launches, inside_main = run("main", phase_main, torch, ft, dev)
     run("profile", phase_profile, torch, ft, dev)
+    run("dense_variants", phase_dense_variants, torch, ft, dev)
     problem = None
     if "sparse" in phases:
         launches["dia_spmm"], problem = run("sparse", phase_sparse, torch, ft, dev)
@@ -1380,6 +1690,8 @@ def main(argv=None):
             ap.error("sparse_profile reuses the hierarchy of the sparse phase")
         run("sparse_profile", phase_sparse_profile, torch, ft, dev, problem)
     del problem
+    run("fastdiag", phase_fastdiag, torch, ft, dev)
+    run("unstructured", phase_unstructured, torch, ft, dev)
     run("nonlinear", phase_nonlinear, torch, ft, dev)
     run("nonlinear_small", phase_nonlinear_small, torch, ft, dev, inside_main)
     emit({"phase_walls_s": walls, "script_s": time.perf_counter() - t0})

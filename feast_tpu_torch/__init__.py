@@ -9,8 +9,11 @@ solvers, the smoothed-aggregation AMG preconditioner), the nonlinear
 solvers (`nlfeast`, `nlfeast_moments`, `nlfeast_it`, `beyn`, `block_ss`,
 `companion`, the stochastic count `contour_estimate_eig` and the
 experimental moment variants, on the NEP types of `nep` and the problem
-gallery of `problems`), and four kernels written by hand for Hopper
-(sm_90a) in `csrc/`: the panel LU of the complex64 node factorizations,
+gallery of `problems`), the Hermitian and two-sided dense drivers, the
+fast-diagonalization preconditioner (`ops.fastdiag`) and the blocked-ELL
+operator (`ops.sparse.BELL`), MatrixMarket input and slice checkpoints
+(`io`), diagnostics and tracing (`utils`), and four kernels written by
+hand for Hopper (sm_90a) in `csrc/`: the panel LU of the complex64 node factorizations,
 the one-launch complex Schur decomposition of the reduced eigenproblem,
 the fp32-accurate complex64 matrix product behind
 `cx.set_gemm_backend("cuda")`, and the complex64 DIA sparse product of the
@@ -21,14 +24,16 @@ requested but absent.  Importing the package turns TF32 off for CUDA
 matmuls (see `_device`).
 """
 
-from . import _device, contour, cx, interop, nep, ops, problems, solvers
+from . import (_device, config, contour, cx, interop, io, nep, ops, problems,
+               solvers, utils)
 from .contour import (Contour, circular_contour_gauss,
                       circular_contour_trapezoidal, custom_contour,
                       elliptical_contour_trapezoidal, in_contour,
                       rational_func, rectangular_contour_gauss,
                       rectangular_contour_trapezoidal, zolotarev_contour)
 from .nep import CallableNEP, LinearPencilNEP, PolynomialNEP, SPMF
-from .solvers import (FeastResult, beyn, block_ss, companion,
+from .utils import convergence_info, print_convergence_info
+from .solvers import (DualFeastResult, FeastResult, beyn, block_ss, companion,
                       contour_estimate_eig, dual_gen_feast, feast,
                       feast_compiled, feast_iterative, gen_feast, ifeast,
                       nlfeast, nlfeast_it, nlfeast_moments,

@@ -4,9 +4,9 @@ The JAX package holds complex data as `CX` (re, im) pairs and contours as
 its own `Contour`.  These helpers take either as plain host data (numpy
 arrays, or anything `np.asarray` accepts) so the port never imports JAX:
 a `CX` is a 2-tuple, and a contour is read through its `nodes`, `weights`,
-`kind` and `params` attributes.  Sparse operators (`CSR`, `DIA`, `STRETCH`,
-`STRETCHT`) and an `AMG` hierarchy are read the same way, by class name and
-attributes, so both packages can be fed one hierarchy; Krylov warm starts
+`kind` and `params` attributes.  Sparse operators (`CSR`, `DIA`, `BELL`,
+`STRETCH`, `STRETCHT`) and an `AMG` hierarchy are read the same way, by
+class name and attributes, so both packages can be fed one hierarchy; Krylov warm starts
 are (nodes, n, m0) pairs and go through `tensor_from_pair`.  With them
 both packages solve the same problem from the same seeded inputs.
 `nep_from` carries a JAX-side SPMF / PolynomialNEP / LinearPencilNEP
@@ -48,11 +48,15 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def operator_from(op, device="cpu", dtype=None):
-    """A JAX-side CSR / DIA / STRETCH / STRETCHT operator -> the port's."""
+    """A JAX-side CSR / DIA / BELL / STRETCH / STRETCHT operator -> the port's."""
     kind = type(op).__name__
     if kind == "STRETCHT":
         return spmod.STRETCHT(operator_from(op.P, device, dtype))
     data = tensor_from_pair(op.data, device, dtype)
+    if kind == "BELL":
+        spill = None if op.spill is None else operator_from(op.spill, device, dtype)
+        colb = torch.as_tensor(np.asarray(op.colb).astype(np.int64), device=device)
+        return spmod.BELL(data, colb, op.shape, spill)
     if kind == "DIA":
         return spmod.DIA(data, op.offsets, op.shape)
     if kind == "STRETCH":

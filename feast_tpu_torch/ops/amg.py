@@ -13,16 +13,17 @@ dense path's factorizations (`ops/lu.py`).
     (piecewise constant, column-normalized) -> optional Jacobi smoothing
     P = (I - w D^-1 A) P_t -> Galerkin products; all levels stored on the
     union pattern of (A_l, B_l) so the shift never changes sparsity;
-  * apply (device): V-cycle with damped-Jacobi smoothing, DIA / CSR
-    products, STRETCH or CSR transfers, guarded-pivot LU on the coarsest
-    level.  With a (nodes,) tensor of shifts every level operator, Jacobi
+  * apply (device): V-cycle with damped-Jacobi smoothing, DIA / BELL /
+    CSR products, STRETCH, BELL or CSR transfers, guarded-pivot LU on the
+    coarsest level.  With a (nodes,) tensor of shifts every level operator, Jacobi
     diagonal and coarse factor carries a leading node axis and one call
     preconditions all nodes at once.
 
 Used through `shifted_preconditioner(amg, z)` -> a callable M for the `M=`
 hook of every solver in ops/krylov.py, and wired into
-`feast_iterative(..., precondition="amg")`.  Levels the JAX package would
-store as BELL are CSR here (BELL is not ported yet).
+`feast_iterative(..., precondition="amg")`.  Each level takes the format
+the JAX package gives it: DIA when banded, BELL when the block cost model
+prefers it (unstructured levels), CSR otherwise.
 """
 
 from __future__ import annotations
@@ -34,15 +35,17 @@ import torch
 
 from .. import cx
 from . import lu as lumod
-from .sparse import CSR, DIA, STRETCH, STRETCHT, _complex, _per_node, _tensor, dia_able
+from .sparse import (BELL, CSR, DIA, STRETCH, STRETCHT, _bell_pick, _complex, _per_node,
+                     _tensor, dia_able)
 
 
 class AMGLevel(NamedTuple):
     """One hierarchy level.  A_op / B_op share one union sparsity structure
-    (identical CSR indices, or identical DIA offsets) so S_l(z) = A_l - z B_l
-    combines their data elementwise.  Banded levels are DIA, others CSR."""
+    (identical CSR indices, DIA offsets or BELL blocks and spill) so
+    S_l(z) = A_l - z B_l combines their data elementwise.  Banded levels
+    are DIA, unstructured ones BELL or CSR."""
 
-    A_op: object         # CSR or DIA, union pattern
+    A_op: object         # DIA, BELL or CSR, union pattern
     B_op: object         # same class / structure as A_op
     dA: torch.Tensor     # (n,) diagonal of A_l
     dB: torch.Tensor     # (n,) diagonal of B_l
@@ -62,6 +65,11 @@ def _shifted_op(A_op, B_op, z: torch.Tensor):
     d = A_op.data - _per_node(z, A_op.data.dim()) * B_op.data
     if isinstance(A_op, DIA):
         return DIA(d, A_op.offsets, A_op.shape)
+    if isinstance(A_op, BELL):
+        spill = None
+        if A_op.spill is not None:  # the capped blocks' CSR shares one pattern
+            spill = _shifted_op(A_op.spill, B_op.spill, z)
+        return BELL(d, A_op.colb, A_op.shape, spill)
     return CSR(d, A_op.indices, A_op.row_ids, A_op.shape)
 
 
@@ -237,7 +245,8 @@ def build_amg(A, B=None, *, theta: float = 0.08, omega: float = 2.0 / 3.0,
 
 def _pair_ops(Au, Bu, dtype, device):
     """The (A, B) union-pattern operator pair: DIA when the union pattern
-    is banded densely enough, else CSR.  Both share one structure so S(z)
+    is banded densely enough, BELL when the block cost model prefers it
+    (`sparse.bell_pick_bs`), else CSR.  Both share one structure so S(z)
     combines their data arrays elementwise."""
     if dia_able(Au):
         A_op = DIA.from_scipy(Au, dtype, device)
@@ -255,7 +264,23 @@ def _pair_ops(Au, Bu, dtype, device):
             return DIA(data, offs, op.shape)
 
         return on(A_op), on(B_op)
+    # the level stores both A and B on the shared pattern: half the
+    # picker's byte cap for each, as in the JAX package (`_union_pair`
+    # gives both one sorted pattern, so Bu's entries follow Au's order)
+    bs, st = _bell_pick(Au, dtype, 0.5e9)
+    if bs is not None:
+        return BELL.from_structure(st, bs, Au.shape, dtype, device, Au.data, Bu.data)
     return CSR.from_scipy(Au, dtype, device), CSR.from_scipy(Bu, dtype, device)
+
+
+def _csr_op(M, dtype, device):
+    """P or R of a strength-aggregated level: BELL when the cost model
+    prefers it (the aggregate map inherits A's locality after
+    reordering), else CSR."""
+    bs, st = _bell_pick(M, dtype, 1.0e9)
+    if bs is not None:
+        return BELL.from_structure(st, bs, M.shape, dtype, device)[0]
+    return CSR.from_scipy(M, dtype, device)
 
 
 def _make_level(Au, Bu, P, R, dtype, device, stride=None) -> AMGLevel:
@@ -268,8 +293,8 @@ def _make_level(Au, Bu, P, R, dtype, device, stride=None) -> AMGLevel:
         if P_op is not None:
             R_op = STRETCHT(P_op)
     if P_op is None:
-        P_op = CSR.from_scipy(P, dtype, device)
-        R_op = CSR.from_scipy(R, dtype, device)
+        P_op = _csr_op(P, dtype, device)
+        R_op = _csr_op(R, dtype, device)
     return AMGLevel(A_op, B_op,
                     _tensor(np.asarray(Au.diagonal(), dtype=np.complex128), dtype, device),
                     _tensor(np.asarray(Bu.diagonal(), dtype=np.complex128), dtype, device),
@@ -294,6 +319,9 @@ def _cast_op(op, dtype):
     d = op.data.to(dtype)
     if isinstance(op, DIA):
         return DIA(d, op.offsets, op.shape)
+    if isinstance(op, BELL):
+        spill = None if op.spill is None else _cast_op(op.spill, dtype)
+        return BELL(d, op.colb, op.shape, spill)
     if isinstance(op, STRETCH):
         return STRETCH(d, op.offsets, op.stride, op.shape)
     return CSR(d, op.indices, op.row_ids, op.shape)

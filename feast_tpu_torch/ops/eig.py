@@ -127,11 +127,35 @@ def _kernel_gate(A: torch.Tensor) -> bool:
             and A.is_cuda and A.dim() == 2 and 2 <= n <= 128)
 
 
+def _pow2_exponent(A: torch.Tensor) -> int:
+    """e such that 2^-e brings A's largest |re|, |im| into [1, 2), clamped
+    to the normal exponents of A's real dtype (the prescale of
+    csrc/schur.cu); 0 for a matrix with a non-finite entry."""
+    amax = float(torch.max(torch.abs(torch.view_as_real(A))))
+    if not math.isfinite(amax):
+        return 0
+    emax = int(math.log2(torch.finfo(cx.real_dtype(A.dtype)).max)) - 1
+    e = math.frexp(amax)[1] - 1 if amax > 0 else -emax
+    return min(max(e, -emax), emax)
+
+
 def _schur_plain(A: torch.Tensor, max_sweeps_per_eig: int = 30):
-    """Plain Schur iteration: returns (T, Z, (sweeps, sum of window sizes))."""
+    """Plain Schur iteration: returns (T, Z, (sweeps, sum of window sizes)).
+
+    A is first scaled by the power of two that brings its largest entry
+    into [1, 2), and T scaled back at the end, as the kernel does: every
+    step is homogeneous in A, so in the normal range no bit changes, and
+    entries of 1e-20 no longer square into the subnormals."""
     n = A.shape[-1]
     if n == 1:
         return A.clone(), torch.ones_like(A), (0, 0)
+    e2 = _pow2_exponent(A)
+    T, Z, stats = _schur_plain_scaled(A * 2.0 ** -e2, max_sweeps_per_eig)
+    return T * 2.0 ** e2, Z, stats
+
+
+def _schur_plain_scaled(A: torch.Tensor, max_sweeps_per_eig: int):
+    n = A.shape[-1]
     H, Z = hessenberg(A)
     eps = torch.finfo(cx.real_dtype(A.dtype)).eps
     fnorm = cx.fro_norm(H)
@@ -371,3 +395,22 @@ def _gen_eig_full(A: torch.Tensor, B: torch.Tensor, refine_rq: bool = True):
     U = lumod.lu_solve(LUh, permh, Wc)    # left eigenvectors of the pencil
     w = _rq_refine_pencil(A, B, w, V, U)
     return w, cx.normalize_cols(V)
+
+
+def eig_left(A: torch.Tensor):
+    """Left eigenvectors, y^H A = lam y^H: the right eigenvectors of A^H
+    with the eigenvalues conjugated.  Returns (w, Y)."""
+    wbar, Y = eig(A.mH.resolve_conj())
+    return torch.conj_physical(wbar), Y
+
+
+def gen_eig_two_sided(A: torch.Tensor, B: torch.Tensor):
+    """Right and left eigenvectors of the pencil (A, B): returns
+    (w, V, (wl, W)) with A V = B V diag(w) and W the right eigenvectors of
+    the adjoint pencil (A^H, B^H), whose values wl are conj(w) in another
+    order."""
+    LU, perm = lumod.lu_factor(B)
+    w, V = eig(lumod.lu_solve(LU, perm, A))                    # B^-1 A
+    LUh, permh = lumod.lu_factor(B.mH.resolve_conj())
+    wl, W = eig(lumod.lu_solve(LUh, permh, A.mH.resolve_conj()))  # B^-H A^H
+    return w, V, (wl, W)

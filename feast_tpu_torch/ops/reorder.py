@@ -1,10 +1,8 @@
 """Bandwidth-reduction reordering for unstructured sparse operators.
 
-Own copy of `feast_tpu/ops/reorder.py` (numpy/scipy only, same logic;
-`aggregate_block_permutation`, the ordering for blocked-ELL storage, comes
-with that format).  The
-fast sparse products are structure-dependent: DIA needs few dense
-diagonals.  A genuinely unstructured matrix, or a banded matrix under a
+Own copy of `feast_tpu/ops/reorder.py` (numpy/scipy only, same logic).
+The fast sparse products are structure-dependent: DIA needs few dense
+diagonals, BELL wants nnz clustered into few blocks per block row.  A genuinely unstructured matrix, or a banded matrix under a
 random row/column permutation, satisfies neither and falls to the
 gather-bound CSR path.
 
@@ -77,3 +75,37 @@ def plan_reorder(A, B=None, *, min_gain: float = 0.5
     if bw1 <= min_gain * max(bw0, 1):
         return perm, info
     return None, info
+
+
+def aggregate_block_permutation(A, bs: int = 32, theta: float = 0.08,
+                                levels: int = 10) -> np.ndarray:
+    """Ordering that minimizes BELL's block count rather than bandwidth:
+    greedy strength-graph aggregation (`amg._aggregate`) repeated until
+    clusters reach about bs rows, the clusters laid out contiguously in the
+    RCM order of the cluster graph.  Rows sharing a block then share
+    neighbours, so each block row touches few column blocks."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from .amg import _aggregate
+
+    A = sp.csr_matrix(abs(sp.csr_matrix(A)))
+    A = (A + A.T).tocsr()
+    n = A.shape[0]
+    label = np.arange(n)      # label[i]: the current cluster of row i
+    G = A
+    size = 1.0
+    for _ in range(levels):
+        if size >= bs:
+            break
+        agg, n_agg = _aggregate(G, theta)
+        label = agg[label]
+        # the cluster graph for the next round (pattern only)
+        P = sp.csr_matrix((np.ones(G.shape[0]), (np.arange(G.shape[0]), agg)),
+                          shape=(G.shape[0], n_agg))
+        G = (P.T @ G @ P).tocsr()
+        G.data[:] = 1.0
+        size = n / n_agg
+    corder = np.asarray(reverse_cuthill_mckee(G, symmetric_mode=True))
+    crank = np.argsort(corder)
+    return np.asarray(np.lexsort((np.arange(n), crank[label])), dtype=np.int64)

@@ -2,8 +2,11 @@
 
 Counterpart of `feast_tpu/ops/sparse.py` on native complex tensors: `CSR`
 (gather + index-add), `DIA` (few dense diagonals, a sum of shifted
-elementwise products), `STRETCH` / `STRETCHT` (the stride-banded AMG
-transfers), `as_operator`, `shifted_matvec`, `jacobi_preconditioner`.
+elementwise products), `BELL` (blocked ELL: block-row gathers and a
+batched block GEMM, the unstructured-pattern format), `STRETCH` /
+`STRETCHT` (the stride-banded AMG transfers), `as_operator` with the BELL
+block-size model (`bell_fill`, `bell_plan`, `bell_hbm_bytes`,
+`bell_pick_bs`), `shifted_matvec`, `jacobi_preconditioner`.
 
 Every `matvec` takes X (..., n_cols, m): leading batch dimensions are the
 contour-node axis of `feast_iterative` (the JAX package's `vmap`), and
@@ -12,8 +15,9 @@ level operators S_l(z_i) of the AMG V-cycle differ per node).
 
 The complex64 DIA product on the card is the hand-written Hopper kernel
 (`ops/dia_kernel.py`); complex128 and every CPU tensor take the plain
-shifted-slice version.  `BELL` (blocked ELL) is not ported yet: where the
-JAX package would pick it, the port picks CSR (same numbers, slower format).
+shifted-slice version.  BELL's product is plain JAX in the JAX package (a
+gather plus a batched einsum, no Pallas kernel), so its port is a torch
+gather plus a batched matmul.
 """
 
 from __future__ import annotations
@@ -171,14 +175,214 @@ class DIA:
 
 
 class BELL:
-    """Blocked-ELL storage of the JAX package: not ported yet.  `as_operator`
-    and the AMG setup choose CSR where the JAX package would choose BELL."""
+    """Blocked-ELL complex matrix, the format for unstructured sparsity.
+
+    Rows are grouped into block rows of `bs`; each block row stores `kmax`
+    dense (bs, bs) blocks (zero blocks pointing at block column 0 pad the
+    short rows), so the product gathers (bs, m) block rows of X and runs
+    one batched GEMM, y[r] = sum_k block(r, k) @ X[colb[r, k]], with no
+    scatter.  With kcap, the block slots beyond the kcap fullest of a block
+    row spill to a small CSR (`spill`).  Reorder first (RCM, or
+    `reorder.aggregate_block_permutation`) so nnz cluster into few blocks.
+
+    Layout (the JAX package's): data (..., nbr, bs, kmax * bs) with
+    data[r, a, k * bs + b] = block(r, k)[a, b], nbr padded to a multiple
+    of 16; colb (nbr, kmax) int64 block-column ids; `shape` the logical
+    shape.  Leading data dimensions are the node axis of shifted level
+    operators."""
+
+    def __init__(self, data, colb, shape, spill: "CSR" = None):
+        self.data = data
+        self.colb = colb
+        self.shape = tuple(shape)
+        self.spill = spill
+
+    @property
+    def bs(self):
+        return self.data.shape[-2]
+
+    @property
+    def kmax(self):
+        return self.data.shape[-1] // self.data.shape[-2]
+
+    @property
+    def nnz(self):
+        # stored entries (blocks are dense in this format), like DIA.nnz
+        d = self.data.shape
+        return d[-3] * d[-2] * d[-1] + (self.spill.nnz if self.spill is not None else 0)
+
+    @staticmethod
+    def _structure(A, bs, kcap=None):
+        """Host-side block structure of a scipy CSR: (colb (nbr, kmax),
+        blk_of_nnz, r_in_blk, c_in_blk, vals, nbr, kmax, keep_nnz, coo,
+        kfull), blk/r/c mapping each stored nnz to (flat block slot, row in
+        block, column in block) and keep_nnz marking the entries of stored
+        blocks (the rest spill to CSR).
+
+        kcap: keep the kcap fullest blocks of each block row and spill the
+        rest; "auto" picks the kcap the cost model below prices lowest
+        (slot GEMMs against spilled CSR entries); None stores every block."""
+        import scipy.sparse as sp
+
+        A = sp.csr_matrix(A)
+        n, m = A.shape
+        coo = A.tocoo()
+        nbr = -(-n // bs)
+        ncb = -(-m // bs)
+        keys = (coo.row // bs).astype(np.int64) * ncb + coo.col // bs
+        uk, inv, cnt = np.unique(keys, return_inverse=True, return_counts=True)
+        ub_row = (uk // ncb).astype(np.int64)
+        ub_col = (uk % ncb).astype(np.int64)
+        counts = np.bincount(ub_row, minlength=nbr)
+        kfull = max(int(counts.max()) if counts.size else 1, 1)
+        row_start = np.zeros(nbr + 1, dtype=np.int64)
+        np.cumsum(counts, out=row_start[1:])
+        # rank blocks within each row by descending nnz count (ties by
+        # column) so a cap keeps the fullest blocks
+        order = np.lexsort((ub_col, -cnt, ub_row))
+        rank = np.empty(uk.size, dtype=np.int64)
+        rank[order] = np.arange(uk.size) - row_start[ub_row[order]]
+        if kcap == "auto":
+            # nnz spilled if capped at k = suffix sum of cnt by rank
+            nnz_at_rank = np.bincount(rank, weights=cnt, minlength=kfull)
+            spill_at = np.concatenate((np.cumsum(nnz_at_rank[::-1])[::-1], [0.0]))
+            ks = np.arange(1, kfull + 1)
+            cost = nbr * ks * (_BELL_T0 + _BELL_T1 * bs) + spill_at[1:] * _CSR_T_NNZ
+            kcap = int(ks[np.argmin(cost)])
+        if kcap is None or kfull <= kcap:
+            kmax, keep = kfull, np.ones(uk.size, dtype=bool)
+        else:
+            kmax, keep = int(kcap), rank < kcap
+        # the block-row count padded to a multiple of 16 with zero blocks,
+        # as in the JAX package (whose chunked product splits nbr evenly)
+        nbr = -(-nbr // 16) * 16
+        colb = np.zeros((nbr, kmax), dtype=np.int64)
+        colb[ub_row[keep], rank[keep]] = ub_col[keep]
+        blk_of_nnz = ub_row[inv] * kmax + np.minimum(rank[inv], kmax - 1)
+        return (colb, blk_of_nnz, (coo.row % bs).astype(np.int64),
+                (coo.col % bs).astype(np.int64), coo.data, nbr, kmax,
+                keep[inv], coo, kfull)
+
+    @staticmethod
+    def _pack(blk, ri, ci, vals, keep, nbr, kmax, bs, dtype, device):
+        data = np.zeros((nbr * kmax, bs, bs), dtype=np.complex128)
+        data[blk[keep], ri[keep], ci[keep]] = vals[keep]
+        data = (data.reshape(nbr, kmax, bs, bs).transpose(0, 2, 1, 3)
+                .reshape(nbr, bs, kmax * bs))
+        return _tensor(data, dtype, device)
+
+    @staticmethod
+    def _spill_csr(coo, vals, keep, shape, dtype, device):
+        if keep.all():
+            return None
+        return CSR(_tensor(vals[~keep].astype(np.complex128), dtype, device),
+                   torch.as_tensor(coo.col[~keep].astype(np.int64), device=device),
+                   torch.as_tensor(coo.row[~keep].astype(np.int64), device=device),
+                   shape)
 
     @classmethod
-    def from_scipy(cls, *args, **kwargs):
-        raise NotImplementedError("feast_tpu_torch: BELL is not ported yet")
+    def from_structure(cls, structure, bs, shape, dtype, device, *values):
+        """Operators on one `_structure` of a scipy CSR: its own values, or
+        each array of `values` (entries in the same order, as a pair on a
+        shared pattern gives them), all sharing colb and the spill split."""
+        colb, blk, ri, ci, vals, nbr, kmax, keep, coo, _ = structure
+        colb_t = torch.as_tensor(colb, device=device)
+        return tuple(cls(cls._pack(blk, ri, ci, v, keep, nbr, kmax, bs, dtype, device),
+                         colb_t, shape, cls._spill_csr(coo, v, keep, shape, dtype, device))
+                     for v in (values or (vals,)))
 
-    pair_from_scipy = from_scipy
+    @classmethod
+    def from_scipy(cls, A, bs: int = 16, dtype=None, kcap="auto", device="cpu"):
+        import scipy.sparse as sp
+
+        A = sp.csr_matrix(A)
+        return cls.from_structure(cls._structure(A, bs, kcap), bs, A.shape,
+                                  _complex(dtype), device)[0]
+
+    @classmethod
+    def pair_from_scipy(cls, Au, Bu, bs: int = 16, dtype=None, kcap="auto",
+                        device="cpu"):
+        """Two matrices on one shared structure (the AMG union pairs, so
+        S(z) = A - z B combines data elementwise).  Au and Bu must have the
+        same sparsity pattern (`amg._union_pair` gives it); the block
+        structure and any spill split are built once, from Au."""
+        import scipy.sparse as sp
+
+        Au = sp.csr_matrix(Au).sorted_indices()
+        Bu = sp.csr_matrix(Bu).sorted_indices()
+        return cls.from_structure(cls._structure(Au, bs, kcap), bs, Au.shape,
+                                  _complex(dtype), device, Au.data, Bu.data)
+
+    def matvec(self, X: torch.Tensor) -> torch.Tensor:
+        """A @ X for X (..., n_cols, m): a gather of X's block rows and a
+        batched block GEMM, in chunks of block rows so that the gathered
+        (rows, kmax bs, m) temporary stays under `_gather_cap`."""
+        if self.data.dim() == 3 and X.dim() > 2:
+            # one operator for every node (a transfer P or R): fold the
+            # nodes into the columns, so that the block GEMM reads the data
+            # once; a broadcast matmul would copy it for each node
+            lead, (nc, m) = X.shape[:-2], X.shape[-2:]
+            Y = self.matvec(X.reshape(-1, nc, m).transpose(0, 1).reshape(nc, -1))
+            return Y.reshape(-1, int(np.prod(lead)), m).transpose(0, 1).reshape(
+                lead + (Y.shape[0], m))
+        n, mcols = self.shape
+        bs, kmax = self.bs, self.kmax
+        m = X.shape[-1]
+        ncb = -(-mcols // bs)
+        lead = torch.broadcast_shapes(self.data.shape[:-3], X.shape[:-2])
+        Xp = torch.nn.functional.pad(X, (0, 0, 0, ncb * bs - mcols))
+        Xb = Xp.reshape(X.shape[:-2] + (ncb, bs, m))
+        nbr = self.colb.shape[0]
+        dt = torch.result_type(self.data, X)
+        gbytes = (int(np.prod(lead)) * nbr * kmax * bs * m
+                  * torch.empty((), dtype=dt).element_size())
+        nchunks = max(1, -(-gbytes // _gather_cap(X.device)))
+        rows = -(-nbr // nchunks)
+        Y = torch.empty(lead + (nbr * bs, m), dtype=dt, device=X.device)
+        for r0 in range(0, nbr, rows):
+            cb = self.colb[r0:r0 + rows]
+            r = cb.shape[0]
+            G = Xb.index_select(-3, cb.reshape(-1)).reshape(
+                X.shape[:-2] + (r, kmax * bs, m))
+            Y[..., r0 * bs:(r0 + r) * bs, :] = torch.matmul(
+                self.data[..., r0:r0 + r, :, :], G).reshape(lead + (r * bs, m))
+        Y = Y[..., :n, :]
+        if self.spill is not None:
+            Y = Y + self.spill.matvec(X)
+        return Y
+
+    def _blocks4(self):
+        """(..., nbr, kmax, bs, bs) logical-block view of the merged data."""
+        bs, kmax = self.bs, self.kmax
+        d = self.data
+        return d.reshape(d.shape[:-2] + (bs, kmax, bs)).transpose(-3, -2)
+
+    def diagonal(self) -> torch.Tensor:
+        n = self.shape[0]
+        nbr = self.colb.shape[0]
+        D4 = self._blocks4()
+        dblk = torch.diagonal(D4, dim1=-2, dim2=-1)           # (..., nbr, kmax, bs)
+        on_diag = (self.colb == torch.arange(nbr, device=self.colb.device)[:, None])
+        d = torch.sum(torch.where(on_diag[..., None], dblk, 0), dim=-2)
+        d = d.reshape(d.shape[:-2] + (nbr * self.bs,))[..., :n]
+        if self.spill is not None:
+            d = d + self.spill.diagonal()
+        return d
+
+    def todense(self) -> torch.Tensor:
+        n, m = self.shape
+        bs, kmax = self.bs, self.kmax
+        nbr = self.colb.shape[0]
+        ncb = -(-m // bs)
+        out = torch.zeros((nbr, ncb, bs, bs), dtype=self.data.dtype,
+                          device=self.data.device)
+        r = torch.arange(nbr, device=out.device).repeat_interleave(kmax)
+        out.index_put_((r, self.colb.reshape(-1)),
+                       self._blocks4().reshape(-1, bs, bs), accumulate=True)
+        D = out.transpose(1, 2).reshape(nbr * bs, ncb * bs)[:n, :m]
+        if self.spill is not None:
+            D = D + self.spill.todense()
+        return D
 
 
 class STRETCH:
@@ -285,12 +489,118 @@ def dia_able(A, dia_fill: float = 0.45) -> bool:
     return len(offs) * A.shape[0] * dia_fill <= A.nnz
 
 
-def as_operator(A, dtype=None, device="cpu", dia_fill: float = 0.45):
-    """Coerce scipy-sparse / dense / tensor / CSR / DIA to a device operator:
-    DIA when the matrix is banded with reasonably dense diagonals, else CSR
-    (the JAX package's BELL tier is not ported); dense input becomes a
-    complex tensor; None and operators pass through."""
-    if A is None or isinstance(A, (CSR, DIA)):
+def bell_fill(A, bs: int = 16) -> float:
+    """Stored entries over nnz that BELL would pay for this matrix at block
+    size `bs` without a cap (host-side, structure only)."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A)
+    coo = A.tocoo()
+    nbr = -(-A.shape[0] // bs)
+    ncb = -(-A.shape[1] // bs)
+    keys = (coo.row // bs).astype(np.int64) * ncb + coo.col // bs
+    uk = np.unique(keys)
+    counts = np.bincount((uk // ncb).astype(np.int64), minlength=nbr)
+    kmax = max(int(counts.max()) if counts.size else 1, 1)
+    return nbr * kmax * bs * bs / max(A.nnz, 1)
+
+
+# The JAX package's SpMM cost model, fitted on a TPU (its
+# benchmarks/results/bell_tune.json: a 200k-dof P1 FEM after RCM, m = 16):
+# seconds per stored block T0 + T1 bs, and per CSR nnz.  It is the TPU's
+# model, not the card's; it is kept unchanged so that both packages pick
+# the same block size and spill split.  `chip_smoke.py --phases
+# unstructured` times the card's product at every candidate bs.
+_BELL_T0 = 60e-9
+_BELL_T1 = 2.6e-9
+_CSR_T_NNZ = 34e-9
+_BELL_CANDIDATE_BS = (8, 16, 32, 64)
+
+
+def _gather_cap(device) -> int:
+    """Bytes the gathered block rows of one BELL product chunk may take: a
+    32nd of the card's memory (2.5 GB on an 80 GB H100), 256 MiB on the
+    host."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 32
+    return 1 << 28
+
+
+def _plan(structure):
+    """(kcap, stored_slots, spill_nnz, kfull) of a `BELL._structure`."""
+    (_colb, _blk, _ri, _ci, _vals, nbr_padded, kmax, keep, _coo, kfull) = structure
+    return kmax, nbr_padded * kmax, float(np.count_nonzero(~keep)), kfull
+
+
+def bell_plan(A, bs: int):
+    """Host-side plan of the auto-kcap BELL structure at block size `bs`:
+    (kcap, stored_slots, spill_nnz, kfull), from `BELL._structure` itself;
+    stored_slots counts the padding of nbr to a multiple of 16."""
+    return _plan(BELL._structure(A, bs, kcap="auto"))
+
+
+def _plan_bytes(plan, bs: int, dtype) -> int:
+    """The JAX package's byte model of one BELL operator: its stored blocks
+    times the TPU's (8, 128) tile padding of the (nbr, bs, kcap bs) layout,
+    plus the spill, at the complex itemsize of `dtype`.  The card stores the
+    blocks unpadded; the caps price the padded bytes all the same, so that
+    both packages admit the same block sizes."""
+    kcap, slots, spill, _ = plan
+    K = kcap * bs
+    pad = (-(-bs // 8) * 8 / bs) * (-(-K // 128) * 128 / max(K, 1))
+    itemsize = torch.empty((), dtype=_complex(dtype)).element_size()
+    return int((slots * bs * bs * pad + spill) * itemsize)
+
+
+def bell_hbm_bytes(A, bs: int, dtype=None) -> int:
+    """Bytes of one BELL operator at block size `bs` with the auto-kcap
+    plan as the JAX package counts them (`_plan_bytes`: TPU tile padding
+    included), at the complex itemsize of `dtype` (default complex128)."""
+    return _plan_bytes(bell_plan(A, bs), bs, dtype)
+
+
+def _bell_pick(A, dtype, max_bytes):
+    """(bs, structure) of `bell_pick_bs` on a scipy CSR, the structure the
+    chosen block size was priced on (None, None for CSR), so that the
+    operator is built without a second pass over the nnz."""
+    best, best_cost, best_st = None, _CSR_T_NNZ * max(A.nnz, 1), None
+    for bs in _BELL_CANDIDATE_BS:
+        st = BELL._structure(A, bs, kcap="auto")
+        plan = _plan(st)
+        if _plan_bytes(plan, bs, dtype) > max_bytes:
+            continue
+        _, slots, spill, _ = plan
+        cost = slots * (_BELL_T0 + _BELL_T1 * bs) + spill * _CSR_T_NNZ
+        if cost < best_cost:
+            best, best_cost, best_st = bs, cost, st
+    return best, best_st
+
+
+def bell_pick_bs(A, dtype=None, max_bytes: float = 1.0e9):
+    """The block size the cost model above prices lowest among those whose
+    operator (`bell_hbm_bytes`, the JAX package's padded bytes) fits
+    `max_bytes`, or None when CSR's modeled time beats every admissible
+    candidate (near-dense rows, point sparsity where each nnz is its own
+    block)."""
+    import scipy.sparse as sp
+
+    return _bell_pick(sp.csr_matrix(A), dtype, max_bytes)[0]
+
+
+def as_operator(A, dtype=None, device="cpu", dia_fill: float = 0.45,
+                bell_bs=None, bell_max_fill: float = 32.0,
+                bell_max_bytes: float = 1.0e9):
+    """Coerce scipy-sparse / dense / tensor / CSR / DIA / BELL to a device
+    operator, as the JAX package chooses:
+      1. DIA when the matrix is banded with reasonably dense diagonals
+         (stored DIA entries <= nnz / dia_fill);
+      2. BELL otherwise, its block size from `bell_pick_bs` under the
+         `bell_max_bytes` cap; `bell_bs` pins it (then `bell_max_fill`
+         guards it);
+      3. CSR as the last resort.
+    Dense input becomes a complex tensor; None and operators pass through."""
+    if A is None or isinstance(A, (CSR, DIA, BELL)):
         return A
     import scipy.sparse as sp
 
@@ -302,6 +612,13 @@ def as_operator(A, dtype=None, device="cpu", dia_fill: float = 0.45):
     Ac = sp.csr_matrix(A)
     if dia_able(Ac, dia_fill):
         return DIA.from_scipy(Ac, dtype, device)
+    if bell_bs is not None:
+        if bell_fill(Ac, bell_bs) <= bell_max_fill:
+            return BELL.from_scipy(Ac, bell_bs, dtype, device=device)
+        return CSR.from_scipy(Ac, dtype, device)
+    bs, st = _bell_pick(Ac, dtype, bell_max_bytes)
+    if bs is not None:
+        return BELL.from_structure(st, bs, Ac.shape, dtype, device)[0]
     return CSR.from_scipy(Ac, dtype, device)
 
 
@@ -309,7 +626,7 @@ def apply_op(M, X: torch.Tensor) -> torch.Tensor:
     """M @ X for an operator, a dense tensor, or None (the identity)."""
     if M is None:
         return X
-    if isinstance(M, (CSR, DIA)):
+    if isinstance(M, (CSR, DIA, BELL)):
         return M.matvec(X)
     return cx.cmatmul(M, X)
 
@@ -334,7 +651,7 @@ def shifted_matvec(A, B, z: torch.Tensor):
 def _diag_of(M, n, dtype, device):
     if M is None:
         return torch.ones(n, dtype=dtype, device=device)
-    if isinstance(M, (CSR, DIA)):
+    if isinstance(M, (CSR, DIA, BELL)):
         return M.diagonal()
     return torch.diagonal(M, dim1=-2, dim2=-1)
 

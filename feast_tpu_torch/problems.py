@@ -4,9 +4,10 @@ Counterpart of `feast_tpu/problems.py`: the same generators, drawing the
 same numbers from the same numpy generators in the same order, so both
 packages build the same matrices from one seed.  Generators return the
 port's NEP types on `device` (default "cuda"); `butterfly` also returns the
-numpy coefficients for `companion`.  The MatrixMarket loaders of the JAX
-package (`load_system5`, `load_quadratic`, `load_butterfly`) come with the
-port of `io.py`.
+numpy coefficients for `companion`.  The MatrixMarket loaders
+(`load_system5`, `load_quadratic`, `load_butterfly`) read the reference's
+fixture files from `data_dir`, or from the directory named by the
+FEAST_REF_DATA environment variable.
 """
 
 from __future__ import annotations
@@ -105,6 +106,52 @@ def laplacian_1d(n: int, sparse: bool = False):
                         [0, 1, -1], format="csr").astype(np.complex128)
     return (np.diag(np.full(n, 2.0)) - np.diag(np.ones(n - 1), 1)
             - np.diag(np.ones(n - 1), -1)).astype(np.complex128)
+
+
+def _data_dir(data_dir: Optional[str]) -> str:
+    d = data_dir or os.environ.get("FEAST_REF_DATA")
+    if not d or not os.path.isdir(d):
+        raise FileNotFoundError(f"fixture dir {d} not found (pass data_dir= "
+                                "or set FEAST_REF_DATA)")
+    return d
+
+
+def _read_dense(d: str, name: str) -> np.ndarray:
+    from .io import read_matrix_market
+
+    return read_matrix_market(os.path.join(d, name), out="dense")
+
+
+def load_system5(data_dir: Optional[str] = None,
+                 device="cuda") -> Tuple[PolynomialNEP, list]:
+    """1000 x 1000 real quadratic from system5A{0,1,2}.mtx (the reference's
+    polynomial test: slice c = -1.55, r = 0.05, m0 = 80, K = 2)."""
+    d = _data_dir(data_dir)
+    coeffs = [_read_dense(d, f"system5A{k}.mtx") for k in range(3)]
+    return PolynomialNEP(coeffs, device), coeffs
+
+
+def load_quadratic(data_dir: Optional[str] = None,
+                   device="cuda") -> Tuple[PolynomialNEP, list]:
+    """15 x 15 rank-deficient quadratic (z + 0.2)(z - 0.1) A1 + A0 from
+    quadraticM{0,1}.mtx."""
+    d = _data_dir(data_dir)
+    A0 = _read_dense(d, "quadraticM0.mtx")
+    A1 = _read_dense(d, "quadraticM1.mtx")
+    coeffs = [A0 - 0.02 * A1, 0.1 * A1, A1]
+    return PolynomialNEP(coeffs, device), coeffs
+
+
+def load_butterfly(data_dir: Optional[str] = None,
+                   device="cuda") -> Tuple[PolynomialNEP, list]:
+    """64 x 64 quartic from butterflyM{0..4}.mtx; `butterfly()` when the
+    fixture directory is absent."""
+    try:
+        d = _data_dir(data_dir)
+    except FileNotFoundError:
+        return butterfly(device=device)
+    coeffs = [_read_dense(d, f"butterflyM{k}.mtx") for k in range(5)]
+    return PolynomialNEP(coeffs, device), coeffs
 
 
 def gun_like(n: int = 256, seed: int = 0, planted: Optional[int] = None,

@@ -14,11 +14,22 @@ mixed_prec the node matrices are factored in complex64 (the panel kernel
 on the card) and each solve is refined by 2 steps of complex128 iterative
 refinement, each residual one wide matmul over all nodes.
 
-Not ported yet (they raise NotImplementedError): `mesh`, `node_loop=True`,
-`rr="host"`, `pencil="hermitian"` (and `hermitian=True`), and
-`dual_gen_feast`.  `node_scan` only chose a memory layout in the JAX
-package; the batched layout here serves every size it did, so the flag is
-accepted and has no effect.
+`pencil="hermitian"` (and `hermitian=True`) reduces through the complex
+`torch.linalg.eigh` (`ops/eigh.py`); `rr="host"` solves the m0 x m0
+reduced problem with LAPACK on the host (the code `feast_iterative`'s host
+Rayleigh-Ritz shares); `node_loop=True` keeps each node's factor as its own
+buffer (on the card, one panel-kernel launch of batch one per panel and
+node) and composes the per-node solves on the host; `dual_gen_feast` is
+the two-sided driver.
+
+Differences kept on purpose: `node_loop=None` stays the stacked path at
+every size.  The JAX package switches to the node loop once the stacked
+factor store passes 6 GB and drops `store` above 9 GB, thresholds sized
+for a 16 GB TPU; the card's 80 GB holds the stacked store of every size
+those served.  `node_scan` only chose a memory layout in the JAX package;
+the batched layout here serves every size it did, so the flag is accepted
+and has no effect.  `mesh` is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from .. import contour as ct
 from .. import cx
 from .._device import as_tensor, resolve_device
 from ..ops import eig as eigmod
+from ..ops import eigh as eighmod
 from ..ops import lu as lumod
 from ..ops import qr as qrmod
 
@@ -161,40 +173,155 @@ def _node_update_scan(LUb, permb, z, w, X, R, lam, solve_dtype, A, B,
             resid = R[None] - _apply_op_batch(A, B, temps, z)
             temps = temps + lumod.lu_solve(LUb, permb, resid.to(solve_dtype),
                                            dinv=dinvb).to(X.dtype)
-    phi = _resolvent(w[:, None], z[:, None], lam[None, :])      # (N, m0)
-    return torch.sum((X[None] - temps) * phi[:, None, :], dim=0)
+    return _accum_update(X, temps, z, w, lam)
 
 
-def _rayleigh_ritz(Q, A, B, pencil: str = "lu"):
-    """Orthonormal-basis Rayleigh-Ritz: (lam, X, R, res).  pencil="qz"
-    solves the projected pencil by QZ instead of the B^{-1} A reduction."""
-    if pencil not in ("lu", "qz"):
-        _unported(f'pencil="{pencil}"')
-    Aq = cx.cgram(Q, A @ Q)
-    if B is None:
-        lam, Xq = eigmod.eig(Aq)
-    elif pencil == "qz":
+def _hermitize(M: torch.Tensor) -> torch.Tensor:
+    return (M + M.mH) / 2
+
+
+def _reduced_eig(Aq, Bq, pencil: str):
+    """Eigenpairs (lam, Xq) of the m0 x m0 reduced problem on the device.
+
+    pencil: "lu" reduces Bq^{-1} Aq; "qz" runs the QZ iteration (robust to
+    singular or indefinite Bq); "hermitian" takes Aq Hermitian and Bq
+    Hermitian positive definite: with Bq = L L^H, the eigenpairs of
+    L^{-1} Aq L^{-H} by eigh, then Xq = L^{-H} Y."""
+    if pencil == "hermitian":        # eigh_cx hermitizes its argument
+        if Bq is None:
+            wr, Xq = eighmod.eigh_cx(Aq)
+        else:
+            L = qrmod.cholesky(_hermitize(Bq))
+            Ct = qrmod.solve_lower(L, _hermitize(Aq))         # L^-1 Aq
+            C = qrmod.solve_lower(L, Ct.mH).mH                # L^-1 Aq L^-H
+            wr, Y = eighmod.eigh_cx(C)
+            Xq = qrmod.solve_upper(L.mH.resolve_conj(), Y)    # L^-H Y
+        return wr.to(Aq.dtype), Xq
+    if Bq is None:
+        return eigmod.eig(Aq)
+    if pencil == "qz":
         from ..ops import qz as qzmod
 
-        alpha, beta, Xq = qzmod.gen_eig_qz(Aq, cx.cgram(Q, B @ Q))
-        lam = cx.cdiv(alpha, beta)
-    else:
-        lam, Xq = eigmod.gen_eig(Aq, cx.cgram(Q, B @ Q))
-    X = cx.normalize_cols(Q @ Xq)
+        alpha, beta, Xq = qzmod.gen_eig_qz(Aq, Bq)
+        return cx.cdiv(alpha, beta), Xq
+    if pencil == "lu":
+        return eigmod.gen_eig(Aq, Bq)
+    raise ValueError(f"unknown pencil {pencil!r} (lu|qz|hermitian)")
+
+
+def _host_eig(a: np.ndarray, b=None, pencil: str = "lu"):
+    """m0 x m0 reduced eig with host LAPACK on numpy arrays: (lam, V).
+
+    "hermitian" runs (z)heev / (z)hegv on the hermitized matrices; "lu" and
+    "qz" both run (z)geev / (z)ggev (ggev is the QZ algorithm).  Shared by
+    the dense drivers' and `feast_iterative`'s rr="host"."""
+    import scipy.linalg as sla
+
+    if pencil == "hermitian":
+        lam, V = sla.eigh((a + a.conj().T) / 2,
+                          None if b is None else (b + b.conj().T) / 2)
+        return lam.astype(np.complex128), V
+    return sla.eig(a) if b is None else sla.eig(a, b)
+
+
+def _ritz_pairs(Qo, A, B, lam, Xq):
+    """Ritz pairs of the orthonormal basis Qo from the reduced eigenpairs
+    (lam, Xq): (lam, X, R, res), X with unit columns, R the residual block."""
+    X = cx.normalize_cols(Qo @ Xq)
     BX = X if B is None else B @ X
     R = A @ X - cx.scale_cols(BX, lam)
     return lam, X, R, cx.col_norms(R)
 
 
-def _check_unported(mesh=None, rr="device", node_loop=None, pencil="lu"):
+def _rayleigh_ritz(Q, A, B, pencil: str = "lu"):
+    """Orthonormal-basis Rayleigh-Ritz: (lam, X, R, res); see `_reduced_eig`
+    for the pencil strategies."""
+    Bq = None if B is None else cx.cgram(Q, B @ Q)
+    return _ritz_pairs(Q, A, B, *_reduced_eig(cx.cgram(Q, A @ Q), Bq, pencil))
+
+
+def _rr_full(Q, A, B, ortho: str, pencil: str, kind: str, params, rr: str):
+    """Orthonormalize, then Rayleigh-Ritz with the reduced eig on the device
+    (rr="device") or in host LAPACK (rr="host": only the m0 x m0 matrices
+    cross); returns (lam, X, R, res, inside)."""
+    Qo = qrmod.orthonormalize(Q, method=ortho)
+    if rr == "device":
+        lam, X, R, res = _rayleigh_ritz(Qo, A, B, pencil)
+    elif rr == "host":
+        Aq = cx.cgram(Qo, A @ Qo).cpu().numpy()
+        Bq = None if B is None else cx.cgram(Qo, B @ Qo).cpu().numpy()
+        lam, V = _host_eig(Aq, Bq, pencil)
+        lam, X, R, res = _ritz_pairs(
+            Qo, A, B, torch.as_tensor(lam, dtype=Q.dtype, device=Q.device),
+            torch.as_tensor(V, dtype=Q.dtype, device=Q.device))
+    else:
+        raise ValueError(f"unknown rr {rr!r} (device|host)")
+    return lam, X, R, res, _in_mask(lam, kind, params)
+
+
+# ---------------------------------------------------------------------------
+# host-composed per-node pipeline (node_loop=True): every node's factor is
+# its own buffer, never stacked on a node axis
+# ---------------------------------------------------------------------------
+
+def _factor_one(A, B, zi, solve_f32: bool, sblock: int):
+    """(LU, perm, diagonal-block inverses) of one node matrix A - z_i B,
+    formed in complex128 and cast as in `_factor_scan`; on the card a
+    complex64 factor is the panel kernel with a batch of one."""
+    Si = _shifted_single(A, B, zi)
+    LU, perm = lumod.lu_factor(Si.to(torch.complex64) if solve_f32 else Si)
+    return LU, perm, lumod.lu_diag_inv(LU, sblock)
+
+
+def _factor_hostloop(A, B, z, solve_f32: bool):
+    """Per-node factors as a list of separate buffers."""
+    n = A.shape[0]
+    sblock = 512 if n > 4096 else lumod._auto_block(n)
+    return [_factor_one(A, B, z[i], solve_f32, sblock) for i in range(z.shape[0])]
+
+
+def _solve_one(LU, perm, dinv, rhs, out_dtype=None):
+    out = lumod.lu_solve(LU, perm, rhs, dinv=dinv)
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def _solve_corr_one(LU, perm, dinv, resid_i, temp_i, solve_dtype):
+    """temp_i plus the solve_dtype correction S_i^{-1} resid_i."""
+    corr = lumod.lu_solve(LU, perm, resid_i.to(solve_dtype), dinv=dinv)
+    return temp_i + corr.to(temp_i.dtype)
+
+
+def _ir_resid_split(A, B, T, z, R):
+    """Refinement residuals R - S_i T_i as one wide product over the
+    node-stacked T, returned as per-node (n, m0) blocks."""
+    return list(R[None] - _apply_op_batch(A, B, T, z))
+
+
+def _accum_update(X, T, z, w, lam):
+    """sum_i (X - T_i) diag(w_i / (z_i - lam))."""
+    phi = _resolvent(w[:, None], z[:, None], lam[None, :])      # (N, m0)
+    return torch.sum((X[None] - T) * phi[:, None, :], dim=0)
+
+
+def _node_update_hostloop(facts, z, w, X, R, lam, solve_dtype, A, B,
+                          refine: int = 2):
+    """RII update over per-node factor buffers: per-node solves, each
+    refinement residual one wide complex128 product (`_ir_resid_split`)."""
+    mixed = solve_dtype is not None and solve_dtype != R.dtype
+    R_s = R.to(solve_dtype) if mixed else R
+    temps = [_solve_one(LU, perm, dinv, R_s, out_dtype=X.dtype)
+             for LU, perm, dinv in facts]
+    if mixed:
+        for _ in range(refine):
+            resid = _ir_resid_split(A, B, torch.stack(temps), z, R)
+            temps = [_solve_corr_one(LU, perm, dinv, ri, ti, solve_dtype)
+                     for (LU, perm, dinv), ri, ti in zip(facts, resid, temps)]
+    return _accum_update(X, torch.stack(temps), z, w, lam)
+
+
+def _check_unported(mesh=None):
     if mesh is not None:
         _unported("mesh (node sharding across devices)")
-    if node_loop:
-        _unported("node_loop=True")
-    if rr != "device":
-        _unported(f'rr="{rr}"')
-    if pencil not in ("lu", "qz"):
-        _unported(f'pencil="{pencil}"')
 
 
 def feast(A, X0, contour: Optional[ct.Contour] = None, *,
@@ -235,27 +362,28 @@ def gen_feast(A, B, X0, contour: Optional[ct.Contour] = None, *,
                   node_loop, tol_mode, device)
 
 
-def dual_gen_feast(*args, **kwargs):
-    """Two-sided generalized FEAST: not ported yet."""
-    _unported("dual_gen_feast")
-
-
 def _drive(A, B, X0, contour, c, r, nodes, iters, tol, store, mixed_prec,
            ortho, debug, callback, mesh, rr, pencil, node_loop, tol_mode,
            device) -> FeastResult:
-    _check_unported(mesh, rr, node_loop, pencil)
+    _check_unported(mesh)
     A, B, Q, contour, z, w = _prepare(A, B, X0, contour, c, r, nodes, device)
     tol = _resolve_tol(tol, tol_mode, contour)
-    solve_dtype = torch.complex64 if mixed_prec else None
+    solve_f32 = bool(mixed_prec)
+    solve_dtype = torch.complex64 if solve_f32 else None
+
+    def factor():
+        if node_loop:
+            return _factor_hostloop(A, B, z, solve_f32)
+        return _factor_scan(A, B, z, solve_f32)
+
     if store:
-        LUb, permb, dinvb = _factor_scan(A, B, z, bool(mixed_prec))
+        facts = factor()
     lam = X = res = inside = None
     n_iter, converged = 0, False
     for nit in range(iters + 1):
         n_iter = nit
-        Qo = qrmod.orthonormalize(Q, method=ortho)
-        lam, X, R, res = _rayleigh_ritz(Qo, A, B, pencil)
-        inside = _in_mask(lam, contour.kind, contour.params)
+        lam, X, R, res, inside = _rr_full(Q, A, B, ortho, pencil, contour.kind,
+                                          contour.params, rr)
         res_h, inside_h = res.cpu().numpy(), inside.cpu().numpy()
         if debug:
             _debug_print(nit, res_h, inside_h)
@@ -267,12 +395,140 @@ def _drive(A, B, X0, contour, c, r, nodes, iters, tol, store, mixed_prec,
         if nit == iters:
             break  # the reference skips the final update too
         if not store:
-            LUb, permb, dinvb = _factor_scan(A, B, z, bool(mixed_prec))
-        Q = _node_update_scan(LUb, permb, z, w, X, R, lam, solve_dtype, A, B,
-                              dinvb=dinvb)
+            facts = factor()
+        if node_loop:
+            Q = _node_update_hostloop(facts, z, w, X, R, lam, solve_dtype, A, B)
+        else:
+            LUb, permb, dinvb = facts
+            Q = _node_update_scan(LUb, permb, z, w, X, R, lam, solve_dtype,
+                                  A, B, dinvb=dinvb)
     if not inside.any():
         print("no eigenvalues found in contour!")
     return FeastResult(lam, X, res, inside, n_iter, converged)
+
+
+# ---------------------------------------------------------------------------
+# two-sided FEAST
+# ---------------------------------------------------------------------------
+
+class DualFeastResult(NamedTuple):
+    lam: torch.Tensor      # (m0,) Ritz values
+    Xr: torch.Tensor       # (n, m0) right Ritz vectors (unit columns)
+    Xl: torch.Tensor       # (n, m0) left Ritz vectors, y^H A = lam y^H B
+    res: torch.Tensor      # (m0,) right residual norms
+    inside: torch.Tensor   # (m0,) bool
+    n_iter: int
+    converged: bool
+
+    def filtered(self):
+        """Host numpy (lam, Xr, Xl, res) restricted to the contour."""
+        mask = self.inside.cpu().numpy()
+        return (self.lam.cpu().numpy()[mask], self.Xr.cpu().numpy()[:, mask],
+                self.Xl.cpu().numpy()[:, mask], self.res.cpu().numpy()[mask])
+
+
+def _dual_pre(Qr, Ql, A, B):
+    """Bi-orthonormalize and build the oblique reduced pencil: from the SVD
+    U S V^H of Ql^H B Qr, Qr V S^{-1/2} and Ql U S^{-1/2} give
+    Ql^H B Qr = I.  Returns (Qr, Ql, Aq, Bq)."""
+    from ..ops import svd as svdmod
+
+    U, s, Vh = svdmod.svd(cx.cgram(Ql, B @ Qr))
+    eps = torch.finfo(s.dtype).eps
+    s_inv_sqrt = (1.0 / torch.sqrt(torch.clamp(s, min=eps * max(float(s[0]), 1.0)))
+                  ).to(Qr.dtype)
+    Qr = cx.scale_cols(Qr @ Vh.mH, s_inv_sqrt)
+    Ql = cx.scale_cols(Ql @ U, s_inv_sqrt)
+    return Qr, Ql, cx.cgram(Ql, A @ Qr), cx.cgram(Ql, B @ Qr)
+
+
+def _dual_post(Qr, Ql, A, B, AH, BH, Bq, lam, Xq, kind: str, params):
+    """Ritz recovery and residuals of both sides: (lam, Xr, Xl, Rr, Rl,
+    res, inside).  The left reduced vectors paired with lam: W^H Aq =
+    lam W^H Bq has the closed form W = Bq^{-H} (Xq^{-1})^H."""
+    m0 = Xq.shape[0]
+    Xq_inv = lumod.solve(Xq, torch.eye(m0, dtype=Xq.dtype, device=Xq.device))
+    LUbq, permbq = lumod.lu_factor(Bq.mH.resolve_conj())
+    Xql = lumod.lu_solve(LUbq, permbq, Xq_inv.mH.resolve_conj())
+    Xr = cx.normalize_cols(Qr @ Xq)
+    Xl = cx.normalize_cols(Ql @ Xql)
+    Rr = A @ Xr - cx.scale_cols(B @ Xr, lam)
+    Rl = AH @ Xl - cx.scale_cols(BH @ Xl, lam.conj())
+    return lam, Xr, Xl, Rr, Rl, cx.col_norms(Rr), _in_mask(lam, kind, params)
+
+
+def _dual_update(facts_r, facts_l, z, w, Xr, Xl, Rr, Rl, lam, solve_dtype,
+                 A, B, AH, BH):
+    """The two-sided node update; the left one runs on the adjoint
+    S_i^H = A^H - conj(z_i) B^H with conjugated weights and Ritz values."""
+    Qr = _node_update_scan(*facts_r[:2], z, w, Xr, Rr, lam, solve_dtype,
+                           A, B, dinvb=facts_r[2])
+    Ql = _node_update_scan(*facts_l[:2], z.conj(), w.conj(), Xl, Rl,
+                           lam.conj(), solve_dtype, AH, BH, dinvb=facts_l[2])
+    return Qr, Ql
+
+
+def dual_gen_feast(A, B, Xr0, Xl0, contour: Optional[ct.Contour] = None, *,
+                   c: complex = 0.0 + 0.0j, r: float = 1.0, nodes: int = 8,
+                   iters: int = 10, tol: float = 1e-12, store: bool = True,
+                   mixed_prec: bool = False, rr: str = "device", mesh=None,
+                   tol_mode: str = "abs", debug: bool = False,
+                   device="cuda") -> DualFeastResult:
+    """Two-sided generalized FEAST: refines right and left subspaces, with
+    node solves on A - z B and on its adjoint (two factor sets, twice the
+    solve cost), and an SVD bi-orthonormalization every sweep.
+
+    store=False refactors both sets every sweep; mixed_prec factors them in
+    complex64 (the panel kernel on the card) with complex128 iterative
+    refinement; rr="host" solves the m0 x m0 oblique pencil with host
+    LAPACK."""
+    _check_unported(mesh)
+    A, B, Qr, contour, z, w = _prepare(A, B, Xr0, contour, c, r, nodes, device)
+    if B is None:
+        raise ValueError("dual_gen_feast requires B")
+    tol = _resolve_tol(tol, tol_mode, contour)
+    Ql = as_tensor(Xl0, Qr.dtype, Qr.device)
+    validate_dims(A, B, Ql, "dual_gen_feast(left)")
+    solve_f32 = bool(mixed_prec)
+    solve_dtype = torch.complex64 if solve_f32 else None
+    AH, BH = A.mH.resolve_conj().contiguous(), B.mH.resolve_conj().contiguous()
+
+    def factor():
+        return (_factor_scan(A, B, z, solve_f32),
+                _factor_scan(AH, BH, z.conj(), solve_f32))
+
+    if store:
+        facts_r, facts_l = factor()
+    lam = Xr = Xl = res = inside = None
+    n_iter, converged = 0, False
+    for nit in range(iters + 1):
+        n_iter = nit
+        Qrb, Qlb, Aq, Bq = _dual_pre(Qr, Ql, A, B)
+        if rr == "host":
+            lam_h, V_h = _host_eig(Aq.cpu().numpy(), Bq.cpu().numpy())
+            lam_i = torch.as_tensor(lam_h, dtype=Aq.dtype, device=Aq.device)
+            Xq_i = torch.as_tensor(V_h, dtype=Aq.dtype, device=Aq.device)
+        elif rr == "device":
+            lam_i, Xq_i = eigmod.gen_eig(Aq, Bq)
+        else:
+            raise ValueError(f"unknown rr {rr!r} (device|host)")
+        lam, Xr, Xl, Rr, Rl, res, inside = _dual_post(
+            Qrb, Qlb, A, B, AH, BH, Bq, lam_i, Xq_i, contour.kind, contour.params)
+        res_h, inside_h = res.cpu().numpy(), inside.cpu().numpy()
+        if debug:
+            _debug_print(nit, res_h, inside_h)
+        if inside_h.any() and res_h[inside_h].max() < tol:
+            converged = True
+            break
+        if nit == iters:
+            break  # the last allowed sweep's update is dead
+        if not store:
+            facts_r, facts_l = factor()
+        Qr, Ql = _dual_update(facts_r, facts_l, z, w, Xr, Xl, Rr, Rl, lam,
+                              solve_dtype, A, B, AH, BH)
+    if not inside.any():
+        print("no eigenvalues found in contour!")
+    return DualFeastResult(lam, Xr, Xl, res, inside, n_iter, converged)
 
 
 def _debug_print(nit, res, inside, spurious_tol=1e-5):
@@ -306,7 +562,7 @@ def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
     seeds the complex128 loop, which alone sets the final accuracy."""
     if hermitian:
         pencil = "hermitian"
-    _check_unported(mesh, "device", None, pencil)
+    _check_unported(mesh)
     A, B, Q, contour, z, w = _prepare(A, B, X0, contour, c, r, nodes, device)
     tol = _resolve_tol(tol, tol_mode, contour)
     mixed = bool(mixed_prec)

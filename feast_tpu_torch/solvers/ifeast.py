@@ -40,8 +40,8 @@ from ..ops import eig as eigmod
 from ..ops import krylov
 from ..ops import qr as qrmod
 from ..ops import sparse as spmod
-from .feast import (FeastResult, _debug_print, _in_mask, _resolve_tol,
-                    _resolvent, _unported)
+from .feast import (FeastResult, _debug_print, _host_eig, _in_mask,
+                    _resolve_tol, _resolvent, _unported)
 
 _DT = torch.complex128
 
@@ -67,6 +67,22 @@ def _raw_matrix(A):
         return sp.coo_matrix(
             (A.data.cpu().numpy(), (A.row_ids.cpu().numpy(), A.indices.cpu().numpy())),
             shape=A.shape).tocsr()
+    if isinstance(A, spmod.BELL):
+        bs, kmax = A.bs, A.kmax
+        nbr = A.colb.shape[0]
+        # merged (nbr, bs, kmax bs) layout -> logical (nbr, kmax, bs, bs)
+        D = A._blocks4().cpu().numpy()
+        colb = A.colb.cpu().numpy()
+        ri, ci = np.meshgrid(np.arange(bs), np.arange(bs), indexing="ij")
+        rows = np.broadcast_to(np.arange(nbr)[:, None, None, None] * bs + ri, D.shape)
+        cols = colb[:, :, None, None] * bs + ci
+        M = sp.coo_matrix((D.ravel(), (rows.ravel(), cols.ravel())),
+                          shape=(nbr * bs, -(-A.shape[1] // bs) * bs)).tocsr()
+        M = sp.csr_matrix(M[:A.shape[0], :A.shape[1]])
+        if A.spill is not None:  # the entries of the capped blocks
+            M = M + _raw_matrix(A.spill)
+        M.eliminate_zeros()
+        return M.tocsr()
     if isinstance(A, torch.Tensor):
         return A.cpu().numpy()
     return A
@@ -131,8 +147,8 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
                     auto_m0_margin: float = 2.5,
                     debug: bool = False, device="cuda") -> FeastResult:
     """Residual-inverse-iteration FEAST with matrix-free iterative node
-    solves.  A, B: scipy-sparse / dense / tensor / CSR / DIA (B=None is the
-    identity); inputs are moved to `device` (default "cuda"; raises when
+    solves.  A, B: scipy-sparse / dense / tensor / CSR / DIA / BELL (B=None
+    is the identity); inputs are moved to `device` (default "cuda"; raises when
     CUDA is absent, pass "cpu" for the plain path).  The outer recurrence
     runs in complex128.
 
@@ -166,6 +182,8 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
     reorder: "auto" applies a reverse Cuthill-McKee permutation to a
     scipy-sparse pencil when it shrinks the bandwidth (ops/reorder.py),
     "rcm" forces it, None / False disables; vectors are permuted back.
+    The permuted pencil then takes DIA when banded, BELL when the block
+    cost model prefers it (`sparse.as_operator`).
 
     m0: subspace sizing when X0 is None: an int draws a random (n, m0)
     start block from `seed`; "auto" sizes it from a matrix-free stochastic
@@ -350,18 +368,13 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
                 print(f"feast_iterative: gmres basis capped -> rhs_chunk={ck}")
 
     if rr == "host":
-        import scipy.linalg as sla
-
         A_h = _raw_matrix(A_raw)
         B_h = None if B is None else _raw_matrix(B_raw)
 
         def rr_host(Q):
             Qo, _ = np.linalg.qr(Q.cpu().numpy())
-            Aq = Qo.conj().T @ (A_h @ Qo)
-            if B_h is None:
-                lam_h, Xq = sla.eig(Aq)
-            else:
-                lam_h, Xq = sla.eig(Aq, Qo.conj().T @ (B_h @ Qo))
+            lam_h, Xq = _host_eig(Qo.conj().T @ (A_h @ Qo),
+                                  None if B_h is None else Qo.conj().T @ (B_h @ Qo))
             Xh = Qo @ Xq
             Xh = Xh / np.maximum(np.linalg.norm(Xh, axis=0),
                                  np.finfo(np.float64).tiny)

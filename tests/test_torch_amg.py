@@ -70,7 +70,7 @@ def test_union_pair_and_aggregate_match_jax():
 
 @pytest.mark.parametrize("aggregate", ["auto", "strength"])
 def test_build_amg_matches_jax_hierarchy(aggregate):
-    """Same levels, sizes, formats (CSR where the JAX package stores BELL)
+    """Same levels, sizes, formats (BELL where the JAX package stores BELL)
     and data (1e-12) from the port's own host setup."""
     n = 3000
     ht = tamg.build_amg(lap1d(n), mass1d(n), aggregate=aggregate)
@@ -89,7 +89,10 @@ def test_build_amg_matches_jax_hierarchy(aggregate):
         if aggregate == "auto":
             assert isinstance(Lt.P, tsp.STRETCH) and isinstance(Lt.R, tsp.STRETCHT)
         else:
-            assert isinstance(Lt.P, tsp.CSR) and isinstance(Lt.R, tsp.CSR)
+            assert isinstance(Lt.P, (tsp.BELL, tsp.CSR))
+        for t_op, j_op in ((Lt.P, Lj.P), (Lt.R, Lj.R)):
+            assert type(t_op).__name__ == type(j_op).__name__
+            assert getattr(t_op, "bs", None) == getattr(j_op, "bs", None)
         xc = _rand(rng, Lt.P.shape[1], 2)
         np.testing.assert_allclose(Lt.P.matvec(torch.as_tensor(xc)).numpy(),
                                    jcx.to_numpy(Lj.P.matvec(jcx.from_numpy(xc))), atol=1e-12)
@@ -130,16 +133,21 @@ def test_vcycle_matches_jax_on_carried_hierarchy(dtype, tol):
 
 def test_vcycle_strength_aggregates_2d_matches_jax():
     """The hierarchy of the 1M-dof run at a small size: 2-D grid pencil,
-    strength aggregation, so a DIA level 0 with CSR transfers and CSR coarse
-    levels (BELL in the JAX package, same numbers).  Each package builds its
-    own hierarchy; one V-cycle agrees to 1e-10 in complex128."""
+    strength aggregation, so a DIA level 0 with BELL or CSR transfers and
+    BELL or CSR coarse levels, each as the JAX package picks it.  Each
+    package builds its own hierarchy; one V-cycle agrees to 1e-10 in
+    complex128."""
     N = 30
     K, B = _grid_pencil(N)
     ht = tamg.build_amg(K, B, aggregate="strength", max_coarse=30)
     hj = jamg.build_amg(K, B, aggregate="strength", max_coarse=30)
     assert len(ht.levels) == len(hj.levels) >= 2
-    assert isinstance(ht.levels[0].A_op, tsp.DIA) and isinstance(ht.levels[0].P, tsp.CSR)
-    assert isinstance(ht.levels[1].A_op, tsp.CSR)
+    assert isinstance(ht.levels[0].A_op, tsp.DIA)
+    assert isinstance(ht.levels[1].A_op, (tsp.BELL, tsp.CSR))
+    for Lt, Lj in zip(ht.levels, hj.levels):
+        for t_op, j_op in ((Lt.A_op, Lj.A_op), (Lt.P, Lj.P), (Lt.R, Lj.R)):
+            assert type(t_op).__name__ == type(j_op).__name__
+            assert getattr(t_op, "bs", None) == getattr(j_op, "bs", None)
     assert [L.A_op.shape for L in ht.levels] == [L.A_op.shape for L in hj.levels]
     zc = 0.004 + 0.002j
     X = _rand(np.random.default_rng(7), N * N, 3)

@@ -113,19 +113,11 @@ def test_entry_points_raise_without_cuda(diag25, monkeypatch):
         ft.gen_feast(A, np.eye(25), X0, c=1.5, r=2.0)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(node_loop=True),
-                                dict(rr="host"), dict(hermitian=True)],
-                         ids=["mesh", "node_loop", "rr_host", "hermitian"])
+@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_unported_arguments_raise(diag25, kw):
     A, X0 = diag25
     with pytest.raises(NotImplementedError):
         ft.feast(A, X0, c=1.5, r=2.0, device="cpu", **kw)
-
-
-def test_dual_gen_feast_not_ported(diag25):
-    A, X0 = diag25
-    with pytest.raises(NotImplementedError, match="dual_gen_feast"):
-        ft.dual_gen_feast(A, np.eye(25), X0, X0, c=1.5, r=2.0, device="cpu")
 
 
 def test_dims_validated(diag25):

@@ -178,14 +178,13 @@ def test_as_operator_selection_and_bell_stub():
                  [0, 1, -1], format="csr").astype(np.complex128)
     assert isinstance(tsp.as_operator(L), tsp.DIA)
     R = sp.random(n, n, density=0.05, random_state=0).astype(np.complex128).tocsr()
-    # where the JAX package picks BELL (or CSR), the port picks CSR
-    assert isinstance(tsp.as_operator(R), tsp.CSR)
-    assert not isinstance(jsp.as_operator(R), jsp.DIA)
+    # off the band both packages pick BELL, at the same block size
+    assert isinstance(tsp.as_operator(R), tsp.BELL)
+    assert isinstance(jsp.as_operator(R), jsp.BELL)
+    assert tsp.as_operator(R).bs == jsp.as_operator(R).bs
     assert tsp.as_operator(None) is None
     op = tsp.as_operator(L, torch.float32)
     assert op.data.dtype == torch.complex64 and tsp.as_operator(op) is op
-    with pytest.raises(NotImplementedError):
-        tsp.BELL.from_scipy(R)
 
 
 # the port's plain DIA product in complex64 against the Pallas kernel in
