@@ -18,8 +18,9 @@ Phases, each printing one JSON line:
           route at the nonlinear path's n = 9956 (padded to 9,984, 4 nodes)
           bit for bit against the plain version on the padded matrix, and
           its launches timed at the first and the last two panels; the same
-          route bit for bit at the unstructured path's dense coarse level
-          (n = 447, padded to 512, one node)
+          route bit for bit and timed at the unstructured path's dense coarse
+          level (n = 447, padded to 512, one node); and one node (a batch of
+          one, the node loop's launch) timed at the 8 positions of n = 4096
   k2      the Schur kernel against its plain version at n = 2, 8 (the sparse
           path's m0), 10 (the unstructured path's), 48 (the dense path's) and
           84 (the nonlinear path's),
@@ -85,6 +86,25 @@ Phases, each printing one JSON line:
           each AMG level's format, and the level-0 BELL product's ms at every
           candidate block size beside the port's CSR product and
           torch.sparse.mm on complex64 CSR
+  orchestrate  the unstructured configuration through the checkpointing
+          orchestrator (benchmarks/unstructured100k.py's default mode):
+          worker subprocesses on the card, the first killed after chunk 3
+          of sweep 1; exactly one restart, resumed at chunk 4, and the
+          in-process result (sweeps, inside count, eigenvalues to 1e-10
+          relative); the wall of the run and of each worker
+  parallel  the mesh= layer over NCCL, one rank per card (world size 1 in
+          process on one card): feast_compiled on the headline against main
+          (the same iterations, eigenvalues to 1e-12); feast_iterative on the
+          1M pencil with fastdiag against fastdiag; feast_sliced and
+          feast_sliced_parallel (mixed_prec, and in full precision as the
+          JAX package runs it) on dense_variants' Hermitian matrix over
+          (0.5, 100.5) in 4 slices: exactly eigvalsh's eigenvalues, host
+          residuals below 1e-10, and each slice's sweeps, convergence and
+          dropped (unconverged) residuals; feast_iterative_rows (node_chunk
+          1) on the unstructured pencil with the row-sharded AMG against
+          unstructured; each call's wall and K1 and K2 launches (K1 where
+          the call factors in complex64: fastdiag factors nothing, the
+          full-precision slices factor in complex128)
   nonlinear  the reference's gun configuration: gun_like(9956, seed=0,
           planted=25) built on the card, then nlfeast(mixed_prec=True,
           store=False; 16 nodes, c=105, r=8, m0=84, tol 1e-10) from
@@ -97,7 +117,7 @@ Phases, each printing one JSON line:
           parts
   nonlinear_small  beyn and block_ss (32 nodes) and nlfeast_moments on
           gun_like(2048) against nlfeast there (1e-8); companion on
-          butterfly() against scipy's eigenvalues of the same pencil;
+          butterfly(6) (N L = 144) against scipy's eigenvalues of the pencil;
           contour_estimate_eig(mixed_prec=True) on the main phase's matrix
           against the count inside
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
@@ -118,8 +138,8 @@ import time
 import numpy as np
 
 PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "dense_variants",
-          "sparse", "sparse_profile", "fastdiag", "unstructured", "nonlinear",
-          "nonlinear_small")
+          "sparse", "sparse_profile", "fastdiag", "unstructured", "orchestrate",
+          "parallel", "nonlinear", "nonlinear_small")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32, outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # H100 SXM TF32 tensor cores, dense
@@ -286,11 +306,17 @@ def phase_k1(torch, panel_lu, dev):
     out["timing"].update({k: [x[k] for x in t] for k in t[0]})
     k_ms, p_ms, l_ms, bounds = (out["timing"][k] for k in
                                 ("kernel_ms", "plain_ms", "library_ms", "bound_ms"))
+    # a batch of one at the same positions: the node loop's 512 launches
+    t1 = [panel_timing(torch, panel_lu, Afull[:1], j0, b) for j0 in positions]
+    out["timing_batch1"] = {k: [x[k] for x in t1] for k in t1[0]}
+    out["timing_batch1"].update({f"mean_{k}": float(np.mean([x[k] for x in t1]))
+                                 for k in ("kernel_ms", "plain_ms", "library_ms",
+                                           "bound_ms")})
     del Afull
     torch.cuda.empty_cache()
     out["padded_gun"] = k1_padded(torch, panel_lu, dev, gen)
     # the unstructured phase's coarse level: 447 columns, one node a launch
-    out["padded_coarse_447"] = k1_padded(torch, panel_lu, dev, gen, B=1, n=447, timed=False)
+    out["padded_coarse_447"] = k1_padded(torch, panel_lu, dev, gen, B=1, n=447)
     emit(out)
     return {"name": "panel_lu", "route": "cuda",
             "source": "feast_tpu_torch/csrc/panel_lu.cu",
@@ -749,7 +775,7 @@ def phase_small(torch, ft, dev):
           "max_residual": float(rr.max())})
 
 
-def phase_main(torch, ft, dev, reps=3):
+def phase_main(torch, ft, dev, refs, reps=3):
     panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
     schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
@@ -809,6 +835,7 @@ def phase_main(torch, ft, dev, reps=3):
           "per_sweep_s": (best - factor_s) / max(res.n_iter, 1),
           "launches_per_solve": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    refs["main"] = {"lam": lam[np.argsort(lam.real)], "n_iter": res.n_iter}
     return launches, int(len(lam))
 
 
@@ -1256,7 +1283,7 @@ def _match_within(a, b, tol, what):
 def phase_nonlinear_small(torch, ft, dev, inside_main=None, n=2048, bench_n=4096):
     """The other nonlinear entry points at cut sizes: beyn, block_ss and
     nlfeast_moments on gun_like(2048) against nlfeast there; companion on
-    butterfly() against scipy; the stochastic count on the dense headline's
+    butterfly(6) against scipy; the stochastic count on the dense headline's
     matrix with complex64 factors (the panel kernel at n = 4096), against
     the count the main phase found inside (LAPACK's when main did not run)."""
     import scipy.linalg as sla
@@ -1302,7 +1329,9 @@ def phase_nonlinear_small(torch, ft, dev, inside_main=None, n=2048, bench_n=4096
                               "eig_err_vs_nlfeast": _match_within(lm, lam_ref, 1e-8, "moments")}
     del T
 
-    _, coeffs = ft.problems.butterfly(device=dev)
+    # butterfly on a 6 x 6 grid (N L = 144): the plain complex128 Schur of the
+    # 8 x 8 one (N L = 256) took 60-120 s of the script's time limit
+    _, coeffs = ft.problems.butterfly(6, device=dev)
     comp, t_c = timed(lambda: ft.companion(coeffs, device=dev))
     N, L = coeffs[0].shape[0], len(coeffs) - 1
     C1 = np.zeros((N * L, N * L), dtype=np.complex128)
@@ -1349,7 +1378,14 @@ def _inside_sorted(res):
     return lam[order], X[:, order]
 
 
-def phase_dense_variants(torch, ft, dev, n=4096):
+def hermitian_problem(n=4096):
+    """diag(1..n) + 0.05 (G + G^H) / 2, G complex Gaussian from seed 0."""
+    G = np.random.default_rng(0)
+    G = G.standard_normal((n, n)) + 1j * G.standard_normal((n, n))
+    return np.diag(np.arange(1.0, n + 1.0)) + 0.05 * (G + G.conj().T) / 2
+
+
+def phase_dense_variants(torch, ft, dev, refs, n=4096):
     """The dense drivers' other options on bench.py's headline problem
     (n = 4096, m0 = 48, 16 nodes, c = 20, r = 22, tol 1e-10, mixed_prec):
     feast(store=True) stacked, then node_loop=True and rr="host", each held
@@ -1398,13 +1434,11 @@ def phase_dense_variants(torch, ft, dev, n=4096):
             "dense_variants: node_loop launched no Schur kernel")
     cases["stacked"]["inside"] = int(len(lam_s))
 
-    G = np.random.default_rng(0)
-    G = G.standard_normal((n, n)) + 1j * G.standard_normal((n, n))
-    H = np.diag(np.arange(1.0, n + 1.0)) + 0.05 * (G + G.conj().T) / 2
-    del G
+    H = hermitian_problem(n)
     t0 = time.perf_counter()
     ref = np.linalg.eigvalsh(H)
     ref_s = time.perf_counter() - t0
+    refs["eigvalsh"] = ref
     ref = ref[np.abs(ref - c) <= r]
     Ht = torch.as_tensor(H, device=dev)
     res = run("hermitian", lambda: ft.feast(Ht, Xt, hermitian=True, **kw))
@@ -1432,7 +1466,7 @@ def phase_dense_variants(torch, ft, dev, n=4096):
           "cases": cases})
 
 
-def phase_fastdiag(torch, ft, dev, N=1000):
+def phase_fastdiag(torch, ft, dev, refs, N=1000):
     """The sparse phase's 1M-dof pencil and slice, with the node solves
     preconditioned by fast diagonalization (`ops/fastdiag.py`, form "kron",
     float32 transforms) instead of AMG: benchmarks/sparse1m.py's --fd
@@ -1483,6 +1517,7 @@ def phase_fastdiag(torch, ft, dev, N=1000):
           "bicgstab_iters_per_sweep_per_node": iters_log,
           "k2_launches": schur_kernel.launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    refs["fastdiag"] = {"lam": lamf, "n_sweeps": res.n_sweeps, "n_iter": res.n_iter}
 
 
 def _level_format(spmod, op):
@@ -1495,7 +1530,56 @@ def _level_format(spmod, op):
     return [type(op).__name__, op.shape[0], None, None, None, None]
 
 
-def phase_unstructured(torch, ft, dev, n_points=100_000):
+UNSTRUCTURED_KW = dict(nodes=8, tol=1e-10, precondition="amg", solver="bicgstab_rr",
+                      solve_tol=1e-9, solve_iters=200)
+
+
+def unstructured_problem(ft, n_points=100_000):
+    """benchmarks/unstructured100k.py's pencil (seed 1), its lowest slice
+    from scipy's shift-invert eigsh, and X0 (n, 10) from seed 3:
+    (K, M, c, r, want, X0, build seconds, eigsh seconds)."""
+    import scipy.sparse.linalg as spl
+
+    t0 = time.perf_counter()
+    K, M, _ = ft.problems.fem2d_unstructured(n_points, seed=1)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = np.sort(spl.eigsh(K.real.tocsc(), k=10, M=M.real.tocsc(), sigma=0,
+                              which="LM", return_eigenvectors=False))
+    exact_s = time.perf_counter() - t0
+    c = (exact[0] + exact[5]) / 2
+    r = (exact[5] - exact[0]) / 2 + 0.4 * (exact[6] - exact[5])
+    rng = np.random.default_rng(3)
+    X0 = rng.standard_normal((K.shape[0], 10)) + 1j * rng.standard_normal((K.shape[0], 10))
+    return (K, M, complex(c), float(r), exact[np.abs(exact - c) <= r], X0, build_s,
+            exact_s)
+
+
+def check_unstructured(label, res, K, M, want, ref):
+    """Converged to the exact slice (1e-9 relative), host residuals below
+    1e-10, and, given the in-process result `ref`, its inside count and
+    sweeps with eigenvalues within 1e-10 relative.  Returns the check's
+    numbers."""
+    lamf, Xf = _inside_sorted(res)
+    host_res = np.linalg.norm(K @ Xf - (M @ Xf) * lamf[None, :], axis=0)
+    require(res.converged, f"{label}: not converged")
+    require(len(lamf) == len(want), f"{label}: {len(lamf)} inside, exact {len(want)}")
+    relerr = float(np.max(np.abs(lamf.real - want) / want))
+    require(relerr < 1e-9, f"{label}: eigenvalue relative error {relerr}")
+    require(np.isfinite(host_res).all() and host_res.max() < 1e-10,
+            f"{label}: host residual {host_res.max()}")
+    out = {"inside": int(len(lamf)), "sweeps": res.n_sweeps, "max_eig_relerr": relerr,
+           "max_residual_host_f64": float(host_res.max())}
+    if ref is not None:
+        diff = float(np.max(np.abs(lamf - ref["lam"]) / np.abs(ref["lam"])))
+        require(res.n_sweeps == ref["n_sweeps"] and diff < 1e-10,
+                f"{label}: {res.n_sweeps} sweeps against {ref['n_sweeps']}, eigenvalues "
+                f"{diff} relative from the in-process solve")
+        out["max_relerr_vs_in_process"] = diff
+    return out
+
+
+def phase_unstructured(torch, ft, dev, refs, n_points=100_000):
     """benchmarks/unstructured100k.py in process: the lowest slice of the P1
     FEM pencil on a Delaunay triangulation of 100,000 random points (n =
     99,975), m0 = 10, 8 nodes, tol 1e-10, reorder="auto" (RCM, then BELL),
@@ -1504,27 +1588,15 @@ def phase_unstructured(torch, ft, dev, n_points=100_000):
     shift-invert eigsh.  Prints each AMG level's format and the BELL
     product's time at level 0 for every candidate block size, beside the
     port's CSR product and torch.sparse.mm."""
-    import scipy.sparse.linalg as spl
-
     spmod = importlib.import_module("feast_tpu_torch.ops.sparse")
     amgmod = importlib.import_module("feast_tpu_torch.ops.amg")
     krylov = importlib.import_module("feast_tpu_torch.ops.krylov")
     rdmod = importlib.import_module("feast_tpu_torch.ops.reorder")
     panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
     schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
-    t0 = time.perf_counter()
-    K, M, _ = ft.problems.fem2d_unstructured(n_points, seed=1)
+    K, M, c, r, want, X0, build_s, exact_s = unstructured_problem(ft, n_points)
+    refs["unstructured_problem"] = (K, M, c, r, want, X0)
     n = K.shape[0]
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    exact = np.sort(spl.eigsh(K.real.tocsc(), k=10, M=M.real.tocsc(), sigma=0,
-                              which="LM", return_eigenvectors=False))
-    exact_s = time.perf_counter() - t0
-    c = (exact[0] + exact[5]) / 2
-    r = (exact[5] - exact[0]) / 2 + 0.4 * (exact[6] - exact[5])
-    want = exact[np.abs(exact - c) <= r]
-    rng = np.random.default_rng(3)
-    X0 = rng.standard_normal((n, 10)) + 1j * rng.standard_normal((n, 10))
 
     kept, iters_log = {}, []
     build_amg, rr_solver = amgmod.build_amg, krylov.bicgstab_rr
@@ -1546,23 +1618,15 @@ def phase_unstructured(torch, ft, dev, n_points=100_000):
     panel_lu.launches = schur_kernel.launches = 0
     with Patched((amgmod, "build_amg", timed_build), (krylov, "bicgstab_rr", logged_solver)):
         t0 = time.perf_counter()
-        res = ft.feast_iterative(K, M, X0, c=complex(c), r=float(r), nodes=8, iters=10,
-                                 tol=1e-10, precondition="amg", solver="bicgstab_rr",
-                                 solve_tol=1e-9, solve_iters=200, reorder="auto",
+        res = ft.feast_iterative(K, M, X0, c=c, r=r, iters=10, reorder="auto",
                                  node_chunk=1, amg_opts={"dtype": torch.float32},
-                                 device=dev)
+                                 device=dev, **UNSTRUCTURED_KW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {"panel_lu": panel_lu.launches, "schur": schur_kernel.launches}
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    lamf, Xf = _inside_sorted(res)
-    host_res = np.linalg.norm(K @ Xf - (M @ Xf) * lamf[None, :], axis=0)
-    require(res.converged, "unstructured: not converged")
-    require(len(lamf) == len(want), f"unstructured: {len(lamf)} inside, exact {len(want)}")
-    relerr = float(np.max(np.abs(lamf.real - want) / want))
-    require(relerr < 1e-9, f"unstructured: eigenvalue relative error {relerr}")
-    require(np.isfinite(host_res).all() and host_res.max() < 1e-10,
-            f"unstructured: host residual {host_res.max()}")
+    checked = check_unstructured("unstructured", res, K, M, want, None)
+    refs["unstructured"] = {"lam": _inside_sorted(res)[0], "n_sweeps": res.n_sweeps}
     require(launches["panel_lu"] > 0 and launches["schur"] > 0,
             f"unstructured: kernel launches {launches}")
     amg = kept["amg"]
@@ -1592,9 +1656,7 @@ def phase_unstructured(torch, ft, dev, n_points=100_000):
     csr_port.matvec(Xd)
     csr_port_ms = cuda_ms(lambda: csr_port.matvec(Xd), reps=20)
     emit({"phase": "unstructured", "n": n, "nnz": int(K.nnz), "m0": 10, "nodes": 8,
-          "inside": int(len(lamf)), "want": int(len(want)), "iterations": res.n_iter,
-          "sweeps": res.n_sweeps, "max_eig_relerr": relerr,
-          "max_residual_host_f64": float(host_res.max()), "wall_s": wall,
+          "want": int(len(want)), "iterations": res.n_iter, **checked, "wall_s": wall,
           "amg_setup_s": kept["setup_s"], "solve_s": wall - kept["setup_s"],
           "pencil_build_s": build_s, "eigsh_s": exact_s,
           "levels_kind_rows_bs_kmax_fill_spill_P": levels,
@@ -1603,6 +1665,213 @@ def phase_unstructured(torch, ft, dev, n_points=100_000):
           "port_csr_ms": csr_port_ms,
           "bicgstab_iters_per_sweep_per_node": iters_log,
           "launches_per_solve": launches, "peak_mem_gb": peak})
+
+
+# ---------------------------------------------------------------------------
+# the checkpointing orchestrator and the parallel layer
+# ---------------------------------------------------------------------------
+
+def phase_orchestrate(torch, ft, dev, refs, smi):
+    """benchmarks/unstructured100k.py's default mode: the `unstructured`
+    configuration through `feast_iterative_checkpointed` (worker
+    subprocesses on the card, sweeps_per_worker covering every sweep,
+    node_chunk 1 with chunk checkpoints), the first worker killed right after
+    chunk 3 of sweep 1 (FEAST_ORCH_CRASH_AFTER_CHUNK): exactly one restart,
+    which resumes sweep 1 at chunk 4, and the in-process result (sweeps,
+    inside count, eigenvalues to 1e-10 relative).  The checkpoint
+    directory is a temporary one."""
+    import os
+    import shutil
+    import tempfile
+
+    orch = importlib.import_module("feast_tpu_torch.orchestrate")
+    if "unstructured" not in refs:
+        phase_unstructured(torch, ft, dev, refs)
+    K, M, c, r, want, X0 = refs["unstructured_problem"]
+    cdir = tempfile.mkdtemp(prefix="feast_orchestrate_")
+    ok = False
+    try:
+        marker = os.path.join(cdir, "crash.marker")
+        t0 = time.perf_counter()
+        res = orch.feast_iterative_checkpointed(
+            K, M, X0, checkpoint_dir=os.path.join(cdir, "ck"), c=c, r=r, max_sweeps=10,
+            max_restarts=2, sweeps_per_worker=10, amg_f32=True, reorder="auto",
+            node_chunk=1, device="cuda", verbose=False,
+            worker_env={"FEAST_ORCH_CRASH_AFTER_CHUNK": marker + ":3"}, **UNSTRUCTURED_KW)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(cdir, "ck", "log.jsonl")) as f:
+            log = [json.loads(ln) for ln in f]
+        ok = True
+    finally:
+        if not ok:        # the last worker's output, before the directory goes
+            print("".join(orch._tail_lines(os.path.join(cdir, "ck", "worker.log"), 40)),
+                  file=sys.stderr)
+        shutil.rmtree(cdir, ignore_errors=True)
+    checked = check_unstructured("orchestrate", res, K, M, want, refs["unstructured"])
+    restarts = [e for e in log if e["event"] == "worker_restart"]
+    resumed = [e["resumed_from_chunk"] for e in log if "resumed_from_chunk" in e]
+    require(len(restarts) == 1 and resumed == [4],
+            f"orchestrate: {len(restarts)} restarts, resumed from chunks {resumed}")
+    # a worker's wall: from the run's start or the previous worker's end
+    ends = [e["t"] for e in log if e["event"] in ("worker_restart", "done")]
+    starts = [log[0]["t"]] + ends[:-1]
+    emit({"phase": "orchestrate", "n": K.shape[0], "card": smi, "wall_s": wall,
+          "restarts": len(restarts), "resumed_from_chunk": resumed,
+          "worker_walls_s": [round(b - a, 1) for a, b in zip(starts, ends)],
+          "sweep_s": [e["sweep_s"] for e in log if e["event"] == "sweep"], **checked})
+
+
+def parallel_rank(rank, world, store, refs, smi):
+    """One rank of the `parallel` phase (NCCL, one card a rank): the mesh=
+    calls of the slice, each checked against its single-process reference
+    in `refs`, each call's K1 and K2 launches counted on this rank."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import feast_tpu_torch as ft
+    from feast_tpu_torch.ops import fastdiag, panel_lu, schur_kernel
+
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        mesh = ft.parallel.node_mesh(device_type="cuda")
+        calls = {}
+
+        def call(label, fn, k1=True):
+            panel_lu.launches = schur_kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            calls[label] = {"wall_s": time.perf_counter() - t0,
+                            "k1_launches": panel_lu.launches,
+                            "k2_launches": schur_kernel.launches}
+            require(schur_kernel.launches > 0 and (panel_lu.launches > 0 or not k1),
+                    f"parallel: {label} launches {calls[label]}")
+            return res
+
+        A, X0, c, r = bench_problem()
+        res = call("feast_compiled", lambda: ft.feast_compiled(
+            A, X0, c=c, r=r, nodes=16, iters=20, tol=1e-10, mixed_prec=True, mesh=mesh,
+            device="cuda"))
+        lam, _ = _inside_sorted(res)
+        ref = refs["main"]
+        diff = float(np.max(np.abs(lam - ref["lam"]))) if len(lam) == len(ref["lam"]) else np.inf
+        require(res.converged and res.n_iter == ref["n_iter"] and diff < 1e-12,
+                f"parallel: feast_compiled n_iter {res.n_iter} against {ref['n_iter']}, "
+                f"eigenvalues {diff} from main's")
+        calls["feast_compiled"].update(iterations=res.n_iter, inside=len(lam),
+                                       max_diff_vs_main=diff)
+        del A
+
+        N = 1000
+        K, B, lam_exact = build_pencil(N)
+        T1, M1 = grid_factors(N)
+        c, r = lowest_slice(lam_exact)
+        X0 = np.random.default_rng(0)
+        X0 = X0.standard_normal((N * N, 8)) + 1j * X0.standard_normal((N * N, 8))
+        fd = fastdiag.build(A1=T1, B1=M1, form="kron", dtype=torch.float32, device="cuda")
+        kw = {k: v for k, v in SPARSE_KW.items() if k != "precondition"}
+        # fastdiag factors nothing: this call's path has no panel kernel
+        res = call("feast_iterative", lambda: ft.feast_iterative(
+            K, B, X0, c=c, r=r, mesh=mesh, precondition=fastdiag.preconditioner(fd),
+            device="cuda", **kw),
+            k1=False)
+        lam, _ = _inside_sorted(res)
+        ref = refs["fastdiag"]
+        diff = (float(np.max(np.abs(lam - ref["lam"]) / np.abs(ref["lam"])))
+                if len(lam) == len(ref["lam"]) else np.inf)
+        require(res.converged and res.n_sweeps == ref["n_sweeps"] and diff < 1e-10,
+                f"parallel: feast_iterative {res.n_sweeps} sweeps against "
+                f"{ref['n_sweeps']}, eigenvalues {diff} relative from fastdiag's")
+        calls["feast_iterative"].update(sweeps=res.n_sweeps, inside=len(lam),
+                                        max_relerr_vs_fastdiag=diff)
+        del K, B, fd, X0
+
+        H = hermitian_problem()
+        lo, hi = 0.5, 100.5
+        want = refs["eigvalsh"][(refs["eigvalsh"] > lo) & (refs["eigvalsh"] < hi)]
+        smesh = init_device_mesh("cuda", (world,), mesh_dim_names=("slice",))
+        skw = dict(nodes=16, iters=30, tol=1e-10)
+        for label, fn, k1 in (
+                ("feast_sliced", lambda: ft.parallel.feast_sliced(
+                    H, (lo, hi), 4, mesh=mesh, mixed_prec=True, **skw), True),
+                ("feast_sliced_parallel", lambda: ft.parallel.feast_sliced_parallel(
+                    H, (lo, hi), 4, mesh=smesh, mixed_prec=True, **skw), True),
+                # the JAX package's precision: complex128 factors, no panel kernel
+                ("feast_sliced_parallel_full_prec", lambda: ft.parallel.feast_sliced_parallel(
+                    H, (lo, hi), 4, mesh=smesh, **skw), False)):
+            out = call(label, fn, k1=k1)
+            order = np.argsort(out.lam.real)
+            lam, X = out.lam[order], out.X[:, order]
+            rr = np.linalg.norm(H @ X - X * lam[None, :], axis=0)
+            # exactly eigvalsh's eigenvalues, each with its host residual; a
+            # slice that stops at its cap with a spurious value inside (the
+            # uniform m0's tie, slicing.py) contributes its converged pairs
+            err = float(np.max(np.abs(lam - want))) if len(lam) == len(want) else np.inf
+            require(err < 1e-10 and rr.max() < 1e-10,
+                    f"parallel: {label} {len(lam)} eigenvalues, eigvalsh {len(want)}; "
+                    f"{err} from eigvalsh, host residuals up to {rr.max()}")
+            spurious = [[float(x) for x in np.sort(s.filtered()[2])
+                         if x >= skw["tol"]] for s in out.per_slice]
+            calls[label].update(found=len(lam), max_err_vs_eigvalsh=err,
+                                max_residual_host_f64=float(rr.max()), m0=out.per_slice[0].X.shape[1],
+                                iterations=[x.n_iter for x in out.per_slice],
+                                converged=[x.converged for x in out.per_slice],
+                                dropped_residuals=spurious)
+        del H
+
+        K, M, c, r, want, X0 = refs["unstructured_problem"]
+        rmesh = ft.parallel.node_row_mesh(world, 1, device_type="cuda")
+        res = call("feast_iterative_rows", lambda: ft.parallel.feast_iterative_rows(
+            K, M, X0, mesh=rmesh, c=c, r=r, iters=10, amg_opts={"dtype": torch.float32},
+            node_chunk=1, **UNSTRUCTURED_KW))
+        calls["feast_iterative_rows"].update(
+            check_unstructured("parallel feast_iterative_rows", res, K, M, want,
+                               refs["unstructured"]))
+        if rank == 0:
+            emit({"phase": "parallel", "world": world, "backend": dist.get_backend(),
+                  "card": smi, "calls": calls})
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(torch, ft, dev, refs, smi):
+    """The parallel layer on NCCL, one rank per visible card: world size 1
+    in this process on one card, spawned ranks on more.  feast_compiled
+    (mesh=node_mesh()) on the headline against `main`; feast_iterative
+    (mesh=) on the 1M pencil with fastdiag against `fastdiag`; feast_sliced
+    (node mesh) and feast_sliced_parallel (slice mesh; mixed_prec, then full
+    precision) on dense_variants' Hermitian matrix over (0.5, 100.5) in 4
+    slices against eigvalsh; feast_iterative_rows (node_chunk 1) on the
+    unstructured pencil with the row-sharded AMG against `unstructured`.
+    Missing references are computed first."""
+    import os
+    import shutil
+    import tempfile
+
+    if "main" not in refs:
+        phase_main(torch, ft, dev, refs)
+    if "fastdiag" not in refs:
+        phase_fastdiag(torch, ft, dev, refs)
+    if "unstructured" not in refs:
+        phase_unstructured(torch, ft, dev, refs)
+    if "eigvalsh" not in refs:
+        refs["eigvalsh"] = np.linalg.eigvalsh(hermitian_problem())
+    world = torch.cuda.device_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="feast_parallel_")
+    try:
+        store = os.path.join(tmp, "store")
+        if world == 1:
+            parallel_rank(0, 1, store, refs, smi)
+        else:
+            torch.multiprocessing.spawn(parallel_rank, args=(world, store, refs, smi),
+                                        nprocs=world)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def load_baseline(root):
@@ -1646,6 +1915,7 @@ def main(argv=None):
     from feast_tpu_torch.ops import panel_lu, schur_kernel
 
     dev = torch.device("cuda", 0)
+    torch.empty(1, device=dev)    # the context, before the first memory-stats call
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -1676,12 +1946,12 @@ def main(argv=None):
                             run("k3", phase_k3, torch, ft, dev),
                             run("k4", phase_k4, torch, dev, base_dia)) if row is not None]
     run("small", phase_small, torch, ft, dev)
-    launches, inside_main = {}, None
+    launches, inside_main, refs = {}, None, {}
     if "main" in phases:
         torch.cuda.reset_peak_memory_stats(dev)
-        launches, inside_main = run("main", phase_main, torch, ft, dev)
+        launches, inside_main = run("main", phase_main, torch, ft, dev, refs)
     run("profile", phase_profile, torch, ft, dev)
-    run("dense_variants", phase_dense_variants, torch, ft, dev)
+    run("dense_variants", phase_dense_variants, torch, ft, dev, refs)
     problem = None
     if "sparse" in phases:
         launches["dia_spmm"], problem = run("sparse", phase_sparse, torch, ft, dev)
@@ -1690,8 +1960,10 @@ def main(argv=None):
             ap.error("sparse_profile reuses the hierarchy of the sparse phase")
         run("sparse_profile", phase_sparse_profile, torch, ft, dev, problem)
     del problem
-    run("fastdiag", phase_fastdiag, torch, ft, dev)
-    run("unstructured", phase_unstructured, torch, ft, dev)
+    run("fastdiag", phase_fastdiag, torch, ft, dev, refs)
+    run("unstructured", phase_unstructured, torch, ft, dev, refs)
+    run("orchestrate", phase_orchestrate, torch, ft, dev, refs, smi)
+    run("parallel", phase_parallel, torch, ft, dev, refs, smi)
     run("nonlinear", phase_nonlinear, torch, ft, dev)
     run("nonlinear_small", phase_nonlinear_small, torch, ft, dev, inside_main)
     emit({"phase_walls_s": walls, "script_s": time.perf_counter() - t0})

@@ -12,7 +12,11 @@ experimental moment variants, on the NEP types of `nep` and the problem
 gallery of `problems`), the Hermitian and two-sided dense drivers, the
 fast-diagonalization preconditioner (`ops.fastdiag`) and the blocked-ELL
 operator (`ops.sparse.BELL`), MatrixMarket input and slice checkpoints
-(`io`), diagnostics and tracing (`utils`), and four kernels written by
+(`io`), diagnostics and tracing (`utils`), the checkpointing orchestrator
+(`orchestrate`: one refinement sweep per worker subprocess), the parallel
+layer on `torch.distributed` (`parallel`: node, row and slice meshes, the
+`mesh=` argument of every driver, spectral slicing and row-sharded sparse
+FEAST), and four kernels written by
 hand for Hopper (sm_90a) in `csrc/`: the panel LU of the complex64 node factorizations,
 the one-launch complex Schur decomposition of the reduced eigenproblem,
 the fp32-accurate complex64 matrix product behind
@@ -26,6 +30,7 @@ matmuls (see `_device`).
 
 from . import (_device, config, contour, cx, interop, io, nep, ops, problems,
                solvers, utils)
+from . import orchestrate, parallel
 from .contour import (Contour, circular_contour_gauss,
                       circular_contour_trapezoidal, custom_contour,
                       elliptical_contour_trapezoidal, in_contour,

@@ -35,8 +35,8 @@ import torch
 
 from .. import cx
 from . import lu as lumod
-from .sparse import (BELL, CSR, DIA, STRETCH, STRETCHT, _bell_pick, _complex, _per_node,
-                     _tensor, dia_able)
+from .sparse import (BELL, CSR, DIA, STRETCH, STRETCHT, RowBlock, _bell_pick, _complex,
+                     _per_node, _tensor, dia_able)
 
 
 class AMGLevel(NamedTuple):
@@ -62,6 +62,8 @@ class AMG(NamedTuple):
 def _shifted_op(A_op, B_op, z: torch.Tensor):
     """S = A - z B on the shared structure: same class, combined data.  A
     (nodes,) z gives data with a leading node axis."""
+    if isinstance(A_op, RowBlock):
+        return A_op.with_local(_shifted_op(A_op.local, B_op.local, z))
     d = A_op.data - _per_node(z, A_op.data.dim()) * B_op.data
     if isinstance(A_op, DIA):
         return DIA(d, A_op.offsets, A_op.shape)
@@ -247,8 +249,9 @@ def _pair_ops(Au, Bu, dtype, device):
     """The (A, B) union-pattern operator pair: DIA when the union pattern
     is banded densely enough, BELL when the block cost model prefers it
     (`sparse.bell_pick_bs`), else CSR.  Both share one structure so S(z)
-    combines their data arrays elementwise."""
-    if dia_able(Au):
+    combines their data arrays elementwise.  A rectangular pair (one
+    rank's rows of a row-sharded level) is BELL or CSR."""
+    if Au.shape[0] == Au.shape[1] and dia_able(Au):
         A_op = DIA.from_scipy(Au, dtype, device)
         B_op = DIA.from_scipy(Bu, dtype, device)
         if A_op.offsets == B_op.offsets:
@@ -316,6 +319,8 @@ def _cast_op(op, dtype):
     """Cast an operator's data to `dtype` (structure unchanged)."""
     if isinstance(op, STRETCHT):
         return STRETCHT(_cast_op(op.P, dtype))
+    if isinstance(op, RowBlock):
+        return op.with_local(_cast_op(op.local, dtype))
     d = op.data.to(dtype)
     if isinstance(op, DIA):
         return DIA(d, op.offsets, op.shape)

@@ -232,7 +232,11 @@ def lu_factor(A: torch.Tensor, block: int = 0):
         if right is not None:
             U12 = _unit_lower_solve_small(panel[:, :b, :b], right[:, :b])
             A3[:, j:j + b, j + b:] = U12
-            A3[:, j + b:, j + b:] = right[:, b:] - cx.cmatmul(panel[:, b:, :b], U12)
+            # the trailing update in place: one (n - j - b)^2 temporary
+            # per matrix, not three
+            A3[:, j + b:, j + b:] = right[:, b:]
+            del right
+            A3[:, j + b:, j + b:].sub_(cx.cmatmul(panel[:, b:, :b], U12))
     return A3.reshape(batch + (n, n)), perm.reshape(batch + (n,))
 
 

@@ -82,10 +82,16 @@ def right_solve_upper(A: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return solve_lower(R.mH, A.mH).mH.resolve_conj()
 
 
-def cholqr(A: torch.Tensor, shift: bool = True):
-    """One (shifted) CholeskyQR pass: (Q, R) with A = Q R."""
+def cholqr(A: torch.Tensor, shift: bool = True, reduce=None):
+    """One (shifted) CholeskyQR pass: (Q, R) with A = Q R.
+
+    reduce: for A a row block of a taller matrix, the callable that sums
+    the block Grams over the row blocks (an all-reduce); the shift then uses
+    the block's own row count, as the JAX package's psum_axis does."""
     n, m = A.shape
     G = cx.cgram(A)
+    if reduce is not None:
+        G = reduce(G)
     if shift:
         eps = torch.finfo(cx.real_dtype(A.dtype)).eps
         # shifted CholeskyQR (Fukaya et al. 2020)
@@ -95,18 +101,18 @@ def cholqr(A: torch.Tensor, shift: bool = True):
     return right_solve_upper(A, R), R
 
 
-def cholqr2(A: torch.Tensor):
+def cholqr2(A: torch.Tensor, reduce=None):
     """Shifted CholeskyQR2."""
-    Q1, R1 = cholqr(A, shift=True)
-    Q2, R2 = cholqr(Q1, shift=False)
+    Q1, R1 = cholqr(A, shift=True, reduce=reduce)
+    Q2, R2 = cholqr(Q1, shift=False, reduce=reduce)
     return Q2, R2 @ R1
 
 
-def cholqr3(A: torch.Tensor):
+def cholqr3(A: torch.Tensor, reduce=None):
     """Shifted CholeskyQR3."""
-    Q1, R1 = cholqr(A, shift=True)
-    Q2, R2 = cholqr(Q1, shift=True)
-    Q3, R3 = cholqr(Q2, shift=False)
+    Q1, R1 = cholqr(A, shift=True, reduce=reduce)
+    Q2, R2 = cholqr(Q1, shift=True, reduce=reduce)
+    Q3, R3 = cholqr(Q2, shift=False, reduce=reduce)
     return Q3, R3 @ (R2 @ R1)
 
 

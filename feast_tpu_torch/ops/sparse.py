@@ -4,9 +4,10 @@ Counterpart of `feast_tpu/ops/sparse.py` on native complex tensors: `CSR`
 (gather + index-add), `DIA` (few dense diagonals, a sum of shifted
 elementwise products), `BELL` (blocked ELL: block-row gathers and a
 batched block GEMM, the unstructured-pattern format), `STRETCH` /
-`STRETCHT` (the stride-banded AMG transfers), `as_operator` with the BELL
-block-size model (`bell_fill`, `bell_plan`, `bell_hbm_bytes`,
-`bell_pick_bs`), `shifted_matvec`, `jacobi_preconditioner`.
+`STRETCHT` (the stride-banded AMG transfers), `RowBlock` (one rank's rows
+of a row-sharded operator), `as_operator` with the BELL block-size model
+(`bell_fill`, `bell_plan`, `bell_hbm_bytes`, `bell_pick_bs`),
+`shifted_matvec`, `jacobi_preconditioner`.
 
 Every `matvec` takes X (..., n_cols, m): leading batch dimensions are the
 contour-node axis of `feast_iterative` (the JAX package's `vmap`), and
@@ -481,6 +482,52 @@ class STRETCHT:
         return self.P.rmatvec(Y)
 
 
+class RowBlock:
+    """Rows [r0, r0 + rows) of an (n, m) operator, the share of one rank of
+    a row-sharded group (`parallel.rowsharded`): `local` (CSR, DIA or
+    BELL) is the (rows, m) block with global column ids, and `gather`
+    turns every rank's (..., rows, k) product block into the full
+    (..., n, k) product.  The operator's entries never leave the rank;
+    only product blocks travel.  `diag` is the whole operator's diagonal
+    (the Jacobi preconditioner's), when known."""
+
+    def __init__(self, local, r0: int, shape, gather, diag=None):
+        self.local = local
+        self.r0 = int(r0)
+        self.shape = tuple(shape)
+        self.gather = gather
+        self.diag = diag
+
+    @property
+    def data(self):
+        return self.local.data
+
+    @property
+    def nnz(self):
+        return self.local.nnz
+
+    def with_local(self, local) -> "RowBlock":
+        """The same rows and gather over another local block (shifted or
+        cast data)."""
+        return RowBlock(local, self.r0, self.shape, self.gather)
+
+    def own_rows(self, X: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of X (..., n, k), zero-padded to the block's."""
+        rows = self.local.shape[0]
+        Xr = X[..., self.r0:self.r0 + rows, :]
+        if Xr.shape[-2] < rows:
+            Xr = torch.nn.functional.pad(Xr, (0, 0, 0, rows - Xr.shape[-2]))
+        return Xr
+
+    def matvec(self, X: torch.Tensor) -> torch.Tensor:
+        return self.gather(self.local.matvec(X))
+
+    def diagonal(self) -> torch.Tensor:
+        if self.diag is None:
+            raise ValueError("RowBlock: diagonal not given")
+        return self.diag
+
+
 def dia_able(A, dia_fill: float = 0.45) -> bool:
     """True when scipy-sparse A is banded densely enough for DIA: stored
     DIA entries <= nnz / dia_fill."""
@@ -600,7 +647,7 @@ def as_operator(A, dtype=None, device="cpu", dia_fill: float = 0.45,
          guards it);
       3. CSR as the last resort.
     Dense input becomes a complex tensor; None and operators pass through."""
-    if A is None or isinstance(A, (CSR, DIA, BELL)):
+    if A is None or isinstance(A, (CSR, DIA, BELL, RowBlock)):
         return A
     import scipy.sparse as sp
 
@@ -626,7 +673,7 @@ def apply_op(M, X: torch.Tensor) -> torch.Tensor:
     """M @ X for an operator, a dense tensor, or None (the identity)."""
     if M is None:
         return X
-    if isinstance(M, (CSR, DIA, BELL)):
+    if isinstance(M, (CSR, DIA, BELL, RowBlock)):
         return M.matvec(X)
     return cx.cmatmul(M, X)
 
@@ -641,6 +688,13 @@ def shifted_matvec(A, B, z: torch.Tensor):
     """Matrix-free X -> (A - z B) X with A, B operators / dense / None
     (identity); z a scalar tensor or (nodes,) against X (nodes, n, m)."""
     zb = _per_node(z, 2)
+    if isinstance(A, RowBlock):
+        # the shifted product of the rank's rows, then one gather
+        def mv(X: torch.Tensor) -> torch.Tensor:
+            BX = A.own_rows(X) if B is None else B.local.matvec(X)
+            return A.gather(A.local.matvec(X) - zb * BX)
+
+        return mv
 
     def mv(X: torch.Tensor) -> torch.Tensor:
         return apply_op(A, X) - zb * apply_op(B, X)
@@ -651,7 +705,7 @@ def shifted_matvec(A, B, z: torch.Tensor):
 def _diag_of(M, n, dtype, device):
     if M is None:
         return torch.ones(n, dtype=dtype, device=device)
-    if isinstance(M, (CSR, DIA, BELL)):
+    if isinstance(M, (CSR, DIA, BELL, RowBlock)):
         return M.diagonal()
     return torch.diagonal(M, dim1=-2, dim2=-1)
 

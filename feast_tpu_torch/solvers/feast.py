@@ -28,8 +28,15 @@ factor store passes 6 GB and drops `store` above 9 GB, thresholds sized
 for a 16 GB TPU; the card's 80 GB holds the stacked store of every size
 those served.  `node_scan` only chose a memory layout in the JAX package;
 the batched layout here serves every size it did, so the flag is accepted
-and has no effect.  `mesh` is not ported yet and raises
-NotImplementedError.
+and has no effect.
+
+`mesh=` (a `torch.distributed` DeviceMesh with a "node" dimension,
+`parallel.node_mesh`) gives each rank nodes / ranks of the contour nodes:
+it factors them (on the card, K1 with that batch), forms their share of
+the resolvent-weighted node sum, and one all-reduce over "node" gives the
+moment block.  Every rank repeats the Rayleigh-Ritz phase (K2 seed on the
+card), so every rank returns the same result.  X0 is broadcast from rank
+0; A and B are the caller's on every rank.
 """
 
 from __future__ import annotations
@@ -68,10 +75,6 @@ class FeastResult(NamedTuple):
                 self.res.cpu().numpy()[mask])
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"feast_tpu_torch: {what} is not ported yet")
-
-
 def validate_dims(A, B, X, what: str = "feast"):
     """Driver-entry shape validation."""
     n = A.shape[0]
@@ -87,16 +90,29 @@ def validate_dims(A, B, X, what: str = "feast"):
         raise ValueError(f"{what}: subspace m0={X.shape[1]} exceeds n={n}")
 
 
-def _prepare(A, B, X0, contour, c, r, nodes, device):
-    dev = resolve_device(device)
+def _prepare(A, B, X0, contour, c, r, nodes, device, mesh=None):
+    """Inputs on the device, the contour and its nodes and weights, and the
+    node-sum reduction: under `mesh` this rank's share of the nodes and X0
+    as rank 0 holds it."""
     dt = torch.complex128
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        from ..parallel import mesh as pmesh
+
+        dev = pmesh.mesh_device(mesh, device)
     A = as_tensor(A, dt, dev)
     B = None if B is None else as_tensor(B, dt, dev)
     X = as_tensor(X0, dt, dev)
     validate_dims(A, B, X)
     if contour is None:
         contour = ct.circular_contour_trapezoidal(complex(c), float(r), int(nodes))
-    return A, B, X, contour, contour.device_nodes(dt, dev), contour.device_weights(dt, dev)
+    z, w = contour.device_nodes(dt, dev), contour.device_weights(dt, dev)
+    if mesh is None:
+        return A, B, X, contour, z, w, lambda Q: Q
+    X = pmesh.replicate(X, mesh)
+    return (A, B, X, contour, pmesh.shard_nodes(z, mesh), pmesh.shard_nodes(w, mesh),
+            lambda Q: pmesh.node_sum(Q, mesh))
 
 
 def _resolve_tol(tol: float, tol_mode: str, contour) -> float:
@@ -319,11 +335,6 @@ def _node_update_hostloop(facts, z, w, X, R, lam, solve_dtype, A, B,
     return _accum_update(X, torch.stack(temps), z, w, lam)
 
 
-def _check_unported(mesh=None):
-    if mesh is not None:
-        _unported("mesh (node sharding across devices)")
-
-
 def feast(A, X0, contour: Optional[ct.Contour] = None, *,
           c: complex = 0.0 + 0.0j, r: float = 1.0, nodes: int = 8,
           iters: int = 10, tol: float = 1e-12, store: bool = True,
@@ -365,8 +376,8 @@ def gen_feast(A, B, X0, contour: Optional[ct.Contour] = None, *,
 def _drive(A, B, X0, contour, c, r, nodes, iters, tol, store, mixed_prec,
            ortho, debug, callback, mesh, rr, pencil, node_loop, tol_mode,
            device) -> FeastResult:
-    _check_unported(mesh)
-    A, B, Q, contour, z, w = _prepare(A, B, X0, contour, c, r, nodes, device)
+    A, B, Q, contour, z, w, node_sum = _prepare(A, B, X0, contour, c, r, nodes,
+                                                device, mesh)
     tol = _resolve_tol(tol, tol_mode, contour)
     solve_f32 = bool(mixed_prec)
     solve_dtype = torch.complex64 if solve_f32 else None
@@ -402,6 +413,7 @@ def _drive(A, B, X0, contour, c, r, nodes, iters, tol, store, mixed_prec,
             LUb, permb, dinvb = facts
             Q = _node_update_scan(LUb, permb, z, w, X, R, lam, solve_dtype,
                                   A, B, dinvb=dinvb)
+        Q = node_sum(Q)
     if not inside.any():
         print("no eigenvalues found in contour!")
     return FeastResult(lam, X, res, inside, n_iter, converged)
@@ -482,12 +494,16 @@ def dual_gen_feast(A, B, Xr0, Xl0, contour: Optional[ct.Contour] = None, *,
     complex64 (the panel kernel on the card) with complex128 iterative
     refinement; rr="host" solves the m0 x m0 oblique pencil with host
     LAPACK."""
-    _check_unported(mesh)
-    A, B, Qr, contour, z, w = _prepare(A, B, Xr0, contour, c, r, nodes, device)
+    A, B, Qr, contour, z, w, node_sum = _prepare(A, B, Xr0, contour, c, r, nodes,
+                                                 device, mesh)
     if B is None:
         raise ValueError("dual_gen_feast requires B")
     tol = _resolve_tol(tol, tol_mode, contour)
     Ql = as_tensor(Xl0, Qr.dtype, Qr.device)
+    if mesh is not None:
+        from ..parallel import mesh as pmesh
+
+        Ql = pmesh.replicate(Ql, mesh)
     validate_dims(A, B, Ql, "dual_gen_feast(left)")
     solve_f32 = bool(mixed_prec)
     solve_dtype = torch.complex64 if solve_f32 else None
@@ -524,8 +540,8 @@ def dual_gen_feast(A, B, Xr0, Xl0, contour: Optional[ct.Contour] = None, *,
             break  # the last allowed sweep's update is dead
         if not store:
             facts_r, facts_l = factor()
-        Qr, Ql = _dual_update(facts_r, facts_l, z, w, Xr, Xl, Rr, Rl, lam,
-                              solve_dtype, A, B, AH, BH)
+        Qr, Ql = map(node_sum, _dual_update(facts_r, facts_l, z, w, Xr, Xl, Rr,
+                                            Rl, lam, solve_dtype, A, B, AH, BH))
     if not inside.any():
         print("no eigenvalues found in contour!")
     return DualFeastResult(lam, Xr, Xl, res, inside, n_iter, converged)
@@ -562,8 +578,8 @@ def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
     seeds the complex128 loop, which alone sets the final accuracy."""
     if hermitian:
         pencil = "hermitian"
-    _check_unported(mesh)
-    A, B, Q, contour, z, w = _prepare(A, B, X0, contour, c, r, nodes, device)
+    A, B, Q, contour, z, w, node_sum = _prepare(A, B, X0, contour, c, r, nodes,
+                                                device, mesh)
     tol = _resolve_tol(tol, tol_mode, contour)
     mixed = bool(mixed_prec)
     LUb, permb, dinvb = _factor_scan(A, B, z, mixed)
@@ -588,9 +604,9 @@ def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
             stop = ((c_it > 0 and worst > 0.5 * prev)
                     or (any_in and worst <= floor32)
                     or (c_it > 1 and not any_in))
-            Qc = Qo if stop else _node_update_scan(
+            Qc = Qo if stop else node_sum(_node_update_scan(
                 LUb, permb, z32, w32, X, R, lam, None, A32, B32, refine=0,
-                dinvb=dinvb)
+                dinvb=dinvb))
             prev = worst
             c_it += 1
         Q = Qc.to(A.dtype)
@@ -608,7 +624,7 @@ def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
         worst = float(torch.max(torch.where(inside, res, 0.0)))
         done = bool(inside.any()) and worst < tol
         if not done and it < iters:  # the last allowed sweep's update is dead
-            Q = _node_update_scan(LUb, permb, z, w, X, R, lam, solve_dtype,
-                                  A, B, dinvb=dinvb)
+            Q = node_sum(_node_update_scan(LUb, permb, z, w, X, R, lam,
+                                           solve_dtype, A, B, dinvb=dinvb))
         it += 1
     return FeastResult(lam, X, res, inside, it, done)

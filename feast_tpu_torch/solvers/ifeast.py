@@ -18,10 +18,11 @@ The contour-node axis is a leading batch dimension: one Krylov call solves
 a chunk of nodes (all of them by default) on (chunk, n, m0) blocks, each
 node frozen by its own stop test (`ops/krylov.py`).  Every sweep is
 Rayleigh-Ritz, then the convergence test, then the node solves, so the
-solves of a converged sweep are never run.
-
-Not ported yet (they raise NotImplementedError): `mesh`, and `chunk_ckpt` /
-`resume_chunk` (they belong to the checkpointing orchestrator).
+solves of a converged sweep are never run.  `chunk_ckpt` / `resume_chunk`
+hook that loop for the checkpointing orchestrator (`orchestrate.py`), and
+`mesh=` spreads the contour nodes over the ranks of a `node` device mesh
+(`parallel/mesh.py`), and the pencil's rows over its "row" dimension when
+it has one (`parallel/rowsharded.py`).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from ..ops import krylov
 from ..ops import qr as qrmod
 from ..ops import sparse as spmod
 from .feast import (FeastResult, _debug_print, _host_eig, _in_mask,
-                    _resolve_tol, _resolvent, _unported)
+                    _resolve_tol, _resolvent)
 
 _DT = torch.complex128
 
@@ -193,17 +194,51 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
 
     node_chunk: solve the contour nodes in chunks of this size instead of
     all at once.  Block BiCGStab holds about ten (n, m0) blocks per node,
-    so a chunk bounds the peak memory; it must divide the node count.
+    so a chunk bounds the peak memory, and a node no longer waits for the
+    slowest of its batch; it must divide the node count (the rank's share
+    under mesh).
+
+    chunk_ckpt / resume_chunk: sub-sweep checkpoints.  `chunk_ckpt(info)`
+    is called once per sweep after the Rayleigh-Ritz phase with
+    {nit, ci: -1, rr: (X, lam, R, res, inside)} and after every node chunk
+    with {nit, ci, nchunks, Qn (the partial moment sum), warm_chunk}, all
+    in the driver's internal (reordered) row numbering; persist them as
+    opaque blobs.  `resume_chunk={"ci0", "Qn", "warm_new", "rr"}` restarts
+    the first sweep of the call at chunk ci0 with those blobs and skips its
+    Rayleigh-Ritz phase when "rr" is given (it is deterministic in Q), so
+    the resumed sweep's Q equals the uninterrupted one bit for bit.
+
+    mesh: a `torch.distributed` DeviceMesh with a "node" dimension
+    (`parallel.node_mesh`); each rank solves nodes / ranks of the contour
+    nodes (in chunks of node_chunk, when given), one all-reduce over
+    "node" sums the moment block, and every rank repeats the
+    Rayleigh-Ritz phase, whose results rank 0 then broadcasts
+    (`parallel.mesh.agree`), so every rank returns the same result.  X0
+    is broadcast from rank 0; the operators and the AMG hierarchy are
+    built on every rank.  A mesh with a "row" dimension as well
+    (`parallel.node_row_mesh`) keeps each rank's rows of the pencil and
+    of every AMG level on that rank, and a product gathers the row blocks
+    (`parallel.feast_iterative_rows`); its AMG aggregates by strength
+    unless amg_opts says otherwise.  It needs X0, rr="device", and no
+    chunk_ckpt / resume_chunk.
 
     nit0: refinement-sweep offset for single-sweep stepping (keeps the
     spurious two-tier stop's nit >= 2 gate continuous across calls)."""
-    if mesh is not None:
-        _unported("mesh (node sharding across devices)")
-    if chunk_ckpt is not None or resume_chunk is not None:
-        _unported("chunk_ckpt / resume_chunk (sub-sweep checkpoints)")
     import scipy.sparse as sp
 
-    dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel import mesh as pmesh
+
+        if X0 is None:
+            raise ValueError("X0=None sizing does not compose with mesh")
+        if rr == "host":
+            raise ValueError("rr='host' does not compose with mesh")
+        if chunk_ckpt is not None or resume_chunk is not None:
+            raise ValueError("chunk_ckpt / resume_chunk do not compose with mesh")
+        dev = pmesh.mesh_device(mesh, device)
+        X0 = pmesh.replicate(as_tensor(X0, _DT, dev), mesh)
+    else:
+        dev = resolve_device(device)
     if warm0 is not None:
         warm0 = as_tensor(warm0, _DT, dev)
     if X0 is not None:
@@ -228,8 +263,15 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
             if warm0 is not None:
                 warm0 = warm0[:, pt]
     A_raw, B_raw = A, B  # (permuted) originals for host-side work
-    A = spmod.as_operator(A, _DT, dev)
-    B = spmod.as_operator(B, _DT, dev)
+    rows = mesh is not None and "row" in (mesh.mesh_dim_names or ())
+    if rows:   # this rank's row blocks (parallel.rowsharded)
+        from ..parallel import rowsharded
+
+        A, B = rowsharded.row_operators(_raw_matrix(A_raw),
+                                        None if B is None else _raw_matrix(B_raw), mesh, _DT)
+    else:
+        A = spmod.as_operator(A, _DT, dev)
+        B = spmod.as_operator(B, _DT, dev)
     n = A.shape[0]
     if precondition is True:
         precondition = "jacobi"
@@ -244,9 +286,9 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
         build_opts = {k: v for k, v in (amg_opts or {}).items()
                       if k not in amg_apply_only}
         build_opts.setdefault("dtype", _DT)
-        amg_hier = amgmod.build_amg(
-            _raw_matrix(A_raw), None if B is None else _raw_matrix(B_raw),
-            device=dev, **build_opts)
+        raw = (_raw_matrix(A_raw), None if B is None else _raw_matrix(B_raw))
+        amg_hier = (rowsharded.row_amg(*raw, mesh, device=dev, **build_opts) if rows
+                    else amgmod.build_amg(*raw, device=dev, **build_opts))
     if X0 is None and m0 is None:
         raise ValueError("pass X0 or m0= (int or 'auto')")
     if contour is None:
@@ -255,6 +297,10 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
     z = contour.device_nodes(_DT, dev)
     w = contour.device_weights(_DT, dev)
     N = len(contour)
+    if mesh is not None:
+        z, w = pmesh.shard_nodes(z, mesh), pmesh.shard_nodes(w, mesh)
+        if warm0 is not None:
+            warm0 = pmesh.shard_nodes(warm0, mesh)
 
     if solver == "bicgstab":
         solve_fn = krylov.bicgstab
@@ -319,12 +365,12 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
         return torch.cat(parts, dim=-1)
 
     if node_chunk is None:
-        node_chunk = N
+        node_chunk = z.shape[0]
     node_chunk = int(node_chunk)
-    if node_chunk < 1 or N % node_chunk:
+    if node_chunk < 1 or z.shape[0] % node_chunk:
         raise ValueError(f"node_chunk={node_chunk} must be a positive divisor "
-                         f"of nodes={N}")
-    chunks = [slice(k, k + node_chunk) for k in range(0, N, node_chunk)]
+                         f"of the {z.shape[0]} nodes of this process")
+    chunks = [slice(k, k + node_chunk) for k in range(0, z.shape[0], node_chunk)]
 
     def hutchinson_count():
         """E[#eig inside] = -(1/s) sum_i Re[w_i tr(X^H (A - z_i B)^{-1} B X)]
@@ -392,7 +438,7 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
     else:
         raise ValueError(f"unknown rr {rr!r} (device|host)")
 
-    if warm0 is not None and tuple(warm0.shape) != (N, n, m0):
+    if warm0 is not None and tuple(warm0.shape) != (z.shape[0], n, m0):
         raise ValueError(f"warm0 shape {tuple(warm0.shape)} != (nodes, n, m0) "
                          f"= {(N, n, m0)}")
     warm = [None if warm0 is None else warm0[sl] for sl in chunks]
@@ -416,25 +462,48 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
     Q = X
     for nit in range(iters + 1):
         n_iter = nit
-        Xout, lam, R, res, inside = rr_step(Q)
+        resuming = resume_chunk is not None and nit == 0
+        rr_state = resume_chunk.get("rr") if resuming else None
+        if rr_state is not None:
+            Xout, lam, R, res, inside = (
+                as_tensor(v, dt, dev) for v, dt in
+                zip(rr_state, (_DT, _DT, _DT, torch.float64, torch.bool)))
+        elif mesh is None:
+            Xout, lam, R, res, inside = rr_step(Q)
+        else:
+            Xout, lam, R, res = pmesh.agree(rr_step(Q)[:4], mesh)
+            inside = _in_mask(lam, contour.kind, contour.params)
         res_h, inside_h = res.cpu().numpy(), inside.cpu().numpy()
         if debug:
             _debug_print(nit + nit0, res_h, inside_h)
         if stops(nit, res_h, inside_h):
             converged = True
             break
-        Qn = None
-        for ci, sl in enumerate(chunks):
+        if chunk_ckpt is not None and rr_state is None:
+            chunk_ckpt({"nit": nit + nit0, "ci": -1,
+                        "rr": (Xout, lam, R, res_h, inside_h)})
+        Qn, ci0 = None, 0
+        if resuming:
+            ci0 = int(resume_chunk.get("ci0", 0))
+            if ci0 > 0:
+                Qn = as_tensor(resume_chunk["Qn"], _DT, dev)
+                for cj in range(ci0):
+                    warm[cj] = as_tensor(resume_chunk["warm_new"][cj], _DT, dev)
+        for ci in range(ci0, len(chunks)):
+            sl = chunks[ci]
             t_ck = time.perf_counter()
             warm[ci] = solve_nodes(z[sl], R, warm[ci])
             phi = _resolvent(w[sl, None], z[sl, None], lam[None, :])   # (chunk, m0)
             term = torch.sum((Xout[None] - warm[ci]) * phi[:, None, :], dim=0)
             Qn = term if Qn is None else Qn + term
+            if chunk_ckpt is not None:
+                chunk_ckpt({"nit": nit + nit0, "ci": ci, "nchunks": len(chunks),
+                            "Qn": Qn, "warm_chunk": warm[ci]})
             if debug and len(chunks) > 1:
                 print(f"  chunk {ci + 1}/{len(chunks)} "
                       f"{time.perf_counter() - t_ck:.1f}s", flush=True)
         n_sweeps += 1
-        Q = Qn
+        Q = Qn if mesh is None else pmesh.node_sum(Qn, mesh)
     if not bool(inside.any()):
         print("no eigenvalues found in contour!")
     warm_out = None
@@ -442,6 +511,8 @@ def feast_iterative(A, B, X0, contour: Optional[ct.Contour] = None, *,
         warm_out = torch.cat([wc if wc is not None
                               else torch.zeros((node_chunk, n, m0), dtype=_DT, device=dev)
                               for wc in warm])
+        if mesh is not None:
+            warm_out = pmesh.gather_nodes(warm_out, mesh)
     if perm is not None:  # undo the row permutation on the vectors
         iperm = torch.as_tensor(np.argsort(perm), device=dev)
         Xout = Xout[iperm]

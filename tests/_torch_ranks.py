@@ -1,0 +1,235 @@
+"""Gloo ranks for the port's parallel tests.
+
+A `Ranks` group is spawned once per test module and runs one named case at
+a time on every rank (SPMD), each rank returning numpy results.  This
+module imports torch and the port only, never jax, so the spawned ranks do
+not pay the JAX package's import; the ranks rendezvous on a FileStore, so
+no port is opened.  Each rank runs one thread: several test files run side
+by side, and their ranks would oversubscribe the cores.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import os
+import queue
+import traceback
+
+import numpy as np
+import torch
+
+CASES = {}
+
+
+def case(fn):
+    CASES[fn.__name__] = fn
+    return fn
+
+
+def _serve(rank, world, store_path, inbox, outbox):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=90))
+    try:
+        while (msg := inbox.get()) is not None:
+            name, kw = msg
+            try:
+                outbox.put((rank, True, CASES[name](**kw)))
+            except Exception:   # reported to the test, which raises it
+                outbox.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+class Ranks:
+    """`world` spawned gloo ranks serving `CASES`."""
+
+    def __init__(self, world: int, tmpdir: str):
+        ctx = multiprocessing.get_context("spawn")
+        self.world = world
+        self.inboxes = [ctx.Queue() for _ in range(world)]
+        self.outbox = ctx.Queue()
+        store = os.path.join(tmpdir, "store")
+        self.procs = [ctx.Process(target=_serve, daemon=True,
+                                  args=(r, world, store, self.inboxes[r], self.outbox))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, name: str, timeout: float = 240.0, **kw):
+        """Per-rank results of CASES[name](**kw), in rank order."""
+        for q in self.inboxes:
+            q.put((name, kw))
+        out, failed = [None] * self.world, []
+        for _ in range(self.world):       # every answer, so none is left queued
+            try:
+                rank, ok, val = self.outbox.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(f"{name}: no answer from the ranks in {timeout} s")
+            out[rank] = val
+            if not ok:
+                failed.append(f"{name} failed on rank {rank}:\n{val}")
+        if failed:
+            raise RuntimeError(failed[0])
+        return out
+
+    def close(self):
+        for q in self.inboxes:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+
+
+# ---------------------------------------------------------------------------
+# cases (run on every rank; arguments and results are numpy)
+# ---------------------------------------------------------------------------
+
+def _host(res):
+    return {"lam": res.lam.numpy(), "X": res.X.numpy(), "res": res.res.numpy(),
+            "inside": res.inside.numpy(), "n_iter": res.n_iter,
+            "converged": res.converged}
+
+
+@case
+def world_info():
+    import torch.distributed as dist
+
+    return dist.get_rank(), dist.get_world_size()
+
+
+@case
+def dense_driver(driver, A, X0, B=None, Xl0=None, mesh_nodes=None, **kw):
+    """feast / gen_feast / feast_compiled / dual_gen_feast with mesh=, and
+    K1's batch on this rank (the node matrices it factors)."""
+    import importlib
+
+    import feast_tpu_torch as ft
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    batches = []
+    factor_scan = fmod._factor_scan
+
+    def counted(A_, B_, z, solve_f32):
+        batches.append(int(z.shape[0]))
+        return factor_scan(A_, B_, z, solve_f32)
+
+    fmod._factor_scan = counted
+    try:
+        mesh = ft.parallel.node_mesh(mesh_nodes, device_type="cpu")
+        fn = getattr(ft, driver)
+        if driver == "dual_gen_feast":
+            res = fn(A, B, X0, Xl0, mesh=mesh, device="cpu", **kw)
+            out = {"lam": res.lam.numpy(), "Xr": res.Xr.numpy(), "Xl": res.Xl.numpy(),
+                   "res": res.res.numpy(), "inside": res.inside.numpy(),
+                   "n_iter": res.n_iter, "converged": res.converged}
+        else:
+            args = (A, X0) if B is None or driver == "feast_compiled" else (A, B, X0)
+            if driver == "feast_compiled" and B is not None:
+                kw["B"] = B
+            out = _host(fn(*args, mesh=mesh, device="cpu", **kw))
+    finally:
+        fmod._factor_scan = factor_scan
+    out["factor_batches"] = batches
+    return out
+
+
+class _Skewed:
+    """Sparse products that round differently on each rank, as products
+    that accumulate with atomics do on a card: the rank's result scaled by
+    1 + rank 2^-50."""
+
+    def __init__(self, skew: bool):
+        from feast_tpu_torch.ops import sparse
+
+        self.classes = (sparse.CSR, sparse.DIA) if skew else ()
+        self.saved = [c.matvec for c in self.classes]
+        f = 1.0 + torch.distributed.get_rank() * 2.0 ** -50
+        for c, mv in zip(self.classes, self.saved):
+            c.matvec = lambda self_, X, mv=mv: mv(self_, X) * f
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for c, mv in zip(self.classes, self.saved):
+            c.matvec = mv
+
+
+@case
+def iterative(A, B, X0, keep_warm=False, skew=False, **kw):
+    import feast_tpu_torch as ft
+
+    mesh = ft.parallel.node_mesh(device_type="cpu")
+    with _Skewed(skew):
+        res = ft.feast_iterative(A, B, X0, mesh=mesh, device="cpu", keep_warm=keep_warm,
+                                 keep_q=True, **kw)
+    out = _host(res)
+    out.update(Q=res.Q.numpy(), n_sweeps=res.n_sweeps,
+               warm=None if res.warm is None else res.warm.numpy())
+    return out
+
+
+@case
+def shard_nodes(N):
+    import feast_tpu_torch as ft
+
+    mesh = ft.parallel.node_mesh(device_type="cpu")
+    x = torch.arange(N, dtype=torch.float64).to(torch.complex128).reshape(N, 1)
+    return ft.parallel.shard_nodes(x, mesh).numpy()
+
+
+@case
+def row_qr(a, method="cholqr2"):
+    import feast_tpu_torch as ft
+
+    mesh = ft.parallel.node_row_mesh(1, torch.distributed.get_world_size(), device_type="cpu")
+    Q, R = ft.parallel.row_sharded_qr(torch.as_tensor(a), mesh, method)
+    return Q.numpy(), R.numpy()
+
+
+@case
+def sliced(A, interval, n_slices, B=None, parallel=False, **kw):
+    import feast_tpu_torch as ft
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = torch.distributed.get_world_size()
+    if parallel:
+        mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("slice",))
+        out = ft.parallel.feast_sliced_parallel(A, interval, n_slices, B, mesh=mesh,
+                                                device="cpu", **kw)
+    else:
+        mesh = ft.parallel.node_mesh(device_type="cpu")
+        out = ft.parallel.feast_sliced(A, interval, n_slices, B, mesh=mesh, **kw)
+    return {"lam": out.lam, "X": out.X, "res": out.res, "counts": np.asarray(out.counts),
+            "iters": [r.n_iter for r in out.per_slice]}
+
+
+@case
+def rows(A, B, X0, n_node, n_row, skew=False, **kw):
+    """feast_iterative_rows on an (n_node, n_row) mesh, with the element
+    count of every all-gather this rank took part in."""
+    import feast_tpu_torch as ft
+    from feast_tpu_torch.parallel import mesh as pmesh
+
+    sizes = []
+    gather = pmesh.all_gather
+
+    def recorded(x, mesh, dim):
+        out = gather(x, mesh, dim)
+        sizes.append(int(out.numel()))
+        return out
+
+    pmesh.all_gather = recorded
+    try:
+        mesh = ft.parallel.node_row_mesh(n_node, n_row, device_type="cpu")
+        with _Skewed(skew):
+            out = _host(ft.parallel.feast_iterative_rows(A, B, X0, mesh=mesh, **kw))
+    finally:
+        pmesh.all_gather = gather
+    out["gather_sizes"] = sizes
+    return out

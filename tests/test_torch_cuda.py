@@ -132,6 +132,30 @@ def test_feast_on_card_golden_and_kernel_use(dev):
     assert schur_kernel.launches > before
 
 
+def test_feast_mesh_world_one_over_nccl(dev, tmp_path):
+    """feast(mesh=node_mesh()) at world size 1 over NCCL equals the solve
+    without a mesh, and factors its nodes with the panel kernel."""
+    import torch.distributed as dist
+
+    A = np.diag(np.arange(1.0, 26.0)).astype(np.complex128)
+    rng = np.random.default_rng(0)
+    X0 = rng.standard_normal((25, 5)) + 1j * rng.standard_normal((25, 5))
+    kw = dict(c=1.5, r=2.0, nodes=8, tol=1e-12, mixed_prec=True, device="cuda")
+    ref = ft.feast(A, X0, **kw)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = ft.parallel.node_mesh(device_type="cuda")
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        before = panel_lu.launches
+        res = ft.feast(A, X0, mesh=mesh, **kw)
+        assert panel_lu.launches > before
+    finally:
+        dist.destroy_process_group()
+    assert res.converged and res.n_iter == ref.n_iter
+    np.testing.assert_allclose(res.lam.cpu().numpy(), ref.lam.cpu().numpy(), atol=1e-12)
+
+
 @pytest.mark.parametrize("batch,M,K,N", [((), 256, 256, 256), ((), 300, 130, 384),
                                          ((3,), 70, 33, 129)])
 def test_cmatmul_kernel_matches_plain(dev, batch, M, K, N):

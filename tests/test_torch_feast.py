@@ -5,6 +5,8 @@ import ast
 import importlib
 import pathlib
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -113,10 +115,13 @@ def test_entry_points_raise_without_cuda(diag25, monkeypatch):
         ft.gen_feast(A, np.eye(25), X0, c=1.5, r=2.0)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
+@pytest.mark.parametrize("kw", [dict(mesh=SimpleNamespace(device_type="cuda"))],
+                         ids=["mesh"])
 def test_unported_arguments_raise(diag25, kw):
+    """Every argument is ported; a mesh= whose device type is not the
+    driver's `device` raises (mesh= itself is held in test_torch_parallel)."""
     A, X0 = diag25
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         ft.feast(A, X0, c=1.5, r=2.0, device="cpu", **kw)
 
 

@@ -313,13 +313,16 @@ def test_feast_iterative_reorder_and_preconditioner_forms():
 
 
 def test_feast_iterative_unported_and_device_default():
+    """mesh= and chunk_ckpt / resume_chunk are ported (test_torch_parallel,
+    test_torch_orchestrate); the compositions the JAX package refuses
+    raise."""
     L, X0, _ = small_problem()
-    with pytest.raises(NotImplementedError):
-        ft.feast_iterative(L, None, X0, mesh=object(), **SMALL_KW)
-    with pytest.raises(NotImplementedError):
-        ft.feast_iterative(L, None, X0, chunk_ckpt=print, **SMALL_KW)
-    with pytest.raises(NotImplementedError):
-        ft.feast_iterative(L, None, X0, resume_chunk={"ci0": 0}, **SMALL_KW)
+    with pytest.raises(ValueError, match="X0=None"):
+        ft.feast_iterative(L, None, None, m0=4, mesh=object(), **SMALL_KW)
+    with pytest.raises(ValueError, match="rr='host'"):
+        ft.feast_iterative(L, None, X0, rr="host", mesh=object(), **SMALL_KW)
+    with pytest.raises(ValueError, match="chunk_ckpt"):
+        ft.feast_iterative(L, None, X0, chunk_ckpt=print, mesh=object(), **SMALL_KW)
     with pytest.raises(ValueError):
         ft.feast_iterative(L, None, X0, solver="cg", **SMALL_KW)
     if not torch.cuda.is_available():      # entry points default to the card
