@@ -73,6 +73,17 @@ Phases, each printing one JSON line:
           numpy's eigvalsh; dual_gen_feast(mixed_prec=True) with B = I, right
           and left residuals on the host in float64 (below 1e-10 and 1e-8);
           the panel and Schur kernels' launches and the wall of each case
+  panel_backend  the factor's two panel routes (`ops.lu.set_panel_backend`)
+          held against each other and timed, in turns, best of 3: "pallas"
+          (K1) and "xla" (the plain blocked loop on the card) on the main
+          path's 16 node matrices of n = 4096 (32 K1 launches, then 0), and
+          once each on one chunk of the gun's node matrices (4 of n = 9956,
+          zero-padded to 9,984 on K1: 78 launches, then 0); each route's
+          backward error ||PA - LU|| / ||A|| within 3x
+          torch.linalg.lu_factor_ex's; then feast_compiled on the main
+          problem under "xla": converged, main's inside count and
+          eigenvalues (1e-10 relative), host residuals below 1e-10, no K1
+          launch; the backend restored to "pallas" at the end
   fastdiag  the sparse phase's 1M-dof pencil and slice with the
           fast-diagonalization preconditioner (form "kron", float32
           transforms) in place of AMG: setup and solve seconds, sweeps,
@@ -138,7 +149,7 @@ import time
 import numpy as np
 
 PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "dense_variants",
-          "sparse", "sparse_profile", "fastdiag", "unstructured", "orchestrate",
+          "panel_backend", "sparse", "sparse_profile", "fastdiag", "unstructured", "orchestrate",
           "parallel", "nonlinear", "nonlinear_small")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32, outside the tensor cores
@@ -837,6 +848,128 @@ def phase_main(torch, ft, dev, refs, reps=3):
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
     refs["main"] = {"lam": lam[np.argsort(lam.real)], "n_iter": res.n_iter}
     return launches, int(len(lam))
+
+
+def lu_backward_error(torch, A, LU, perm, count):
+    """max over the first `count` matrices of ||PA - LU|| / ||A|| in
+    complex128, the factor's own (`ops.lu`) and torch.linalg.lu_factor_ex's
+    of the same matrices."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=torch.complex128, device=A.device)
+    own = lib = 0.0
+    for i in range(count):
+        Ai = A[i].to(torch.complex128)
+        nrm = torch.linalg.norm(Ai)
+        L = torch.tril(LU[i].to(torch.complex128), -1) + eye
+        R = L @ torch.triu(LU[i].to(torch.complex128)) - Ai[perm[i]]
+        own = max(own, float(torch.linalg.norm(R) / nrm))
+        del L, R
+        LUl, pivl, _ = torch.linalg.lu_factor_ex(A[i])
+        Pl, Ll, Ul = torch.lu_unpack(LUl, pivl)
+        R = Ai - Pl.to(torch.complex128) @ (Ll.to(torch.complex128) @ Ul.to(torch.complex128))
+        lib = max(lib, float(torch.linalg.norm(R) / nrm))
+        del LUl, pivl, Pl, Ll, Ul, R, Ai
+    return own, lib
+
+
+def phase_panel_backend(torch, ft, dev, refs, smi, reps=3):
+    """The two panel routes of the factor on the card: "pallas" (K1) and
+    "xla" (the plain blocked loop, no K1), on the main path's node
+    matrices and on one chunk of the gun's; then feast_compiled on the main
+    problem under "xla" against `main`.  The backend is "pallas" again
+    when the phase ends, whatever happened."""
+    lumod = importlib.import_module("feast_tpu_torch.ops.lu")
+    panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    if "main" not in refs:
+        phase_main(torch, ft, dev, refs)
+
+    def factor(S, backend):
+        lumod.set_panel_backend(backend)
+        before = panel_lu.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        LU, perm = lumod.lu_factor(S)
+        torch.cuda.synchronize()
+        return LU, perm, time.perf_counter() - t0, panel_lu.launches - before
+
+    def both_routes(label, S, panels, reps, check):
+        out = {"label": label, "batch": S.shape[0], "n": S.shape[-1], "card": smi}
+        walls = {"pallas": [], "xla": []}
+        for _ in range(reps):                  # in turns: host walls drift between calls
+            for backend in ("pallas", "xla"):
+                LU, perm, wall, launches = factor(S, backend)
+                walls[backend].append(wall)
+                want = panels if backend == "pallas" else 0
+                require(launches == want,
+                        f"panel_backend {label}: {launches} K1 launches under "
+                        f"{backend!r}, {want} expected")
+                out[f"k1_launches_{backend}"] = launches
+                if f"resid_{backend}" not in out:
+                    own, lib = lu_backward_error(torch, S, LU, perm, check)
+                    require(own < 3 * lib,
+                            f"panel_backend {label} {backend!r}: ||PA - LU||/||A|| = "
+                            f"{own}, library {lib}")
+                    out[f"resid_{backend}"] = own
+                    out["resid_torch_linalg"] = lib
+                del LU, perm
+        for backend, w in walls.items():
+            out[f"{backend}_s"] = w
+            out[f"{backend}_best_s"] = min(w)
+        emit(dict(out, phase="panel_backend"))
+        return out
+
+    A, X0, c, r = bench_problem()
+    At = torch.as_tensor(A, device=dev)
+    try:
+        # the main path's node matrices, formed as _factor_scan forms them
+        z = ft.circular_contour_trapezoidal(c, r, 16).device_nodes(torch.complex128, dev)
+        S = torch.empty((16, 4096, 4096), dtype=torch.complex64, device=dev)
+        for i in range(16):
+            S[i] = fmod._shifted_single(At, None, z[i])
+        both_routes("main_nodes", S, 32, reps, 2)
+        del S
+        torch.cuda.empty_cache()
+
+        # one chunk of the gun's node matrices, as nlfeast evaluates them
+        T = ft.problems.gun_like(GUN_N, seed=0, planted=25, device=dev)
+        z = ft.circular_contour_trapezoidal(GUN_KW["c"], GUN_KW["r"],
+                                            GUN_KW["nodes"]).device_nodes(torch.complex128, dev)
+        S = T.eval_nodes(z[:4], out_dtype=torch.complex64)
+        del T
+        torch.cuda.empty_cache()
+        both_routes("gun_chunk", S, -(-GUN_N // 128), 1, 1)
+        del S
+        torch.cuda.empty_cache()
+
+        # the whole dense solve under "xla"
+        lumod.set_panel_backend("xla")
+        panel_lu.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ft.feast_compiled(At, torch.as_tensor(X0, device=dev), c=c, r=r, nodes=16,
+                                iters=20, tol=1e-10, mixed_prec=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = panel_lu.launches
+    finally:
+        lumod.set_panel_backend("pallas")
+    lam, rr = host_residuals(A, res)
+    lam = lam[np.argsort(lam.real)]
+    ref = refs["main"]["lam"]
+    diff = (float(np.max(np.abs(lam - ref) / np.abs(ref))) if len(lam) == len(ref)
+            else np.inf)
+    require(res.converged and len(lam) == len(ref) and diff < 1e-10,
+            f"panel_backend: feast_compiled under 'xla' converged={res.converged}, "
+            f"{len(lam)} inside (main {len(ref)}), {diff} relative from main")
+    require(np.isfinite(rr).all() and rr.max() < 1e-10,
+            f"panel_backend: feast_compiled under 'xla' host residual {rr.max()}")
+    require(launches == 0, f"panel_backend: {launches} K1 launches under 'xla'")
+    require(lumod._PANEL_BACKEND == "pallas", "panel_backend: backend not restored")
+    emit({"phase": "panel_backend", "label": "feast_compiled_xla", "card": smi,
+          "wall_s": wall, "iterations": res.n_iter, "inside": int(len(lam)),
+          "max_relerr_vs_main": diff, "max_residual_host_f64": float(rr.max()),
+          "k1_launches": launches})
 
 
 def traced(torch, fn):
@@ -1952,6 +2085,7 @@ def main(argv=None):
         launches, inside_main = run("main", phase_main, torch, ft, dev, refs)
     run("profile", phase_profile, torch, ft, dev)
     run("dense_variants", phase_dense_variants, torch, ft, dev, refs)
+    run("panel_backend", phase_panel_backend, torch, ft, dev, refs, smi)
     problem = None
     if "sparse" in phases:
         launches["dia_spmm"], problem = run("sparse", phase_sparse, torch, ft, dev)

@@ -32,6 +32,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices name the same one ("cuda" is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+
+
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """numpy array / tensor / scalar -> tensor of `dtype` on `device`."""
     if isinstance(x, torch.Tensor):

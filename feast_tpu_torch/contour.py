@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from . import cx
+from ._device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,14 +64,14 @@ class Contour:
         """max |z| over the nodes (the drivers' tol_mode="contour" scale)."""
         return float(np.max(np.abs(np.asarray(self.nodes))))
 
-    def device_nodes(self, dtype=torch.complex128, device="cpu") -> torch.Tensor:
+    def device_nodes(self, dtype=torch.complex128, device="cuda") -> torch.Tensor:
         return torch.as_tensor(np.asarray(self.nodes), dtype=dtype,
-                               device=device)
+                               device=resolve_device(device))
 
     def device_weights(self, dtype=torch.complex128,
-                       device="cpu") -> torch.Tensor:
+                       device="cuda") -> torch.Tensor:
         return torch.as_tensor(np.asarray(self.weights), dtype=dtype,
-                               device=device)
+                               device=resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -291,3 +292,12 @@ def rational_func_tensor(z: torch.Tensor, contour: Contour) -> torch.Tensor:
     quot = cx.cdiv(weights[:, None].expand(-1, zf.shape[0]),
                    nodes[:, None] - zf[None, :])
     return quot.sum(0).reshape(z.shape)
+
+
+def rational_func_pairs(zr, zi, contour: Contour) -> torch.Tensor:
+    """rho(z) at z = zr + i zi (the JAX package's name, whose arguments are
+    the pair's planes); returns the complex tensor `rational_func_tensor`
+    gives, on zr's device, complex128 for float64 planes."""
+    zr = torch.as_tensor(zr)
+    zi = torch.as_tensor(zi, dtype=zr.dtype, device=zr.device)
+    return rational_func_tensor(torch.complex(zr, zi), contour)

@@ -90,11 +90,11 @@ def cpow_scalar(z: torch.Tensor, p: int) -> torch.Tensor:
     return result
 
 
-def phase(a: torch.Tensor) -> torch.Tensor:
-    """a/|a| with a -> 1 at zero (the Householder sign choice)."""
+def phase(a: torch.Tensor, eps=0.0) -> torch.Tensor:
+    """a/|a| with a -> 1 where |a| <= eps (the Householder sign choice)."""
     re, im = parts(a)
     m = torch.hypot(re, im)
-    safe = m > 0
+    safe = m > eps
     m_ = torch.where(safe, m, 1.0)
     return torch.complex(torch.where(safe, re / m_, 1.0),
                          torch.where(safe, im / m_, 0.0))
@@ -120,8 +120,10 @@ def fro_norm(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(abs2(a), dim=(-2, -1)))
 
 
-def normalize_cols(a: torch.Tensor) -> torch.Tensor:
-    """Scale each column to unit 2-norm (zero columns are left as they are)."""
+def normalize_cols(a: torch.Tensor, eps=0.0) -> torch.Tensor:
+    """Scale each column to unit 2-norm (zero columns are left as they are).
+    eps is the JAX package's argument, which its function does not read
+    either."""
     nrm = col_norms(a)
     nrm = torch.where(nrm == 0, 1.0, nrm)
     return a / nrm.unsqueeze(-2)

@@ -20,15 +20,17 @@ import numpy as np
 import torch
 
 from . import contour as ct
+from ._device import resolve_device
 from . import nep as nepmod
 from .ops import amg as amgmod
 from .ops import sparse as spmod
 
 
-def tensor_from_pair(pair, device="cpu", dtype=None) -> torch.Tensor:
+def tensor_from_pair(pair, device="cuda", dtype=None) -> torch.Tensor:
     """(re, im) pair -> complex tensor on `device`.
 
     dtype defaults to complex128 for float64 planes, complex64 otherwise."""
+    device = resolve_device(device)
     re, im = (np.asarray(p) for p in pair)
     if dtype is None:
         dtype = torch.complex128 if re.dtype == np.float64 else torch.complex64
@@ -47,8 +49,9 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def operator_from(op, device="cpu", dtype=None):
+def operator_from(op, device="cuda", dtype=None):
     """A JAX-side CSR / DIA / BELL / STRETCH / STRETCHT operator -> the port's."""
+    device = resolve_device(device)
     kind = type(op).__name__
     if kind == "STRETCHT":
         return spmod.STRETCHT(operator_from(op.P, device, dtype))
@@ -69,8 +72,9 @@ def operator_from(op, device="cpu", dtype=None):
     raise NotImplementedError(f"interop: no counterpart for operator {kind}")
 
 
-def amg_from(amg, device="cpu", dtype=None) -> amgmod.AMG:
+def amg_from(amg, device="cuda", dtype=None) -> amgmod.AMG:
     """A JAX-side AMG hierarchy (levels, Ac, Bc) -> the port's."""
+    device = resolve_device(device)
     levels = tuple(
         amgmod.AMGLevel(operator_from(L.A_op, device, dtype),
                         operator_from(L.B_op, device, dtype),
@@ -83,7 +87,7 @@ def amg_from(amg, device="cpu", dtype=None) -> amgmod.AMG:
                       tensor_from_pair(amg.Bc, device, dtype))
 
 
-def nep_from(T, funcs=None, device="cpu"):
+def nep_from(T, funcs=None, device="cuda"):
     """A JAX-side SPMF (or PolynomialNEP / LinearPencilNEP) -> the port's.
 
     The coefficient matrices are read through `mats` (CX pairs).  A

@@ -5,9 +5,9 @@ products of matrices and functions),
 
     T(z) = sum_j f_j(z) A_j,
 
-with complex128 coefficient matrices A_j on one device and scalar
-functions f_j that take and return complex tensors (broadcasting over any
-shape of z).  The form gives
+with complex coefficient matrices A_j on one device (complex128 unless a
+`dtype` is given) and scalar functions f_j that take and return complex
+tensors (broadcasting over any shape of z).  The form gives
 
   * node matrices T(z_i) term by term (`eval_nodes`);
   * residual columns T(lam_k) x_k for every Ritz value at once:
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import cx
-from ._device import as_tensor, resolve_device
+from ._device import as_tensor, resolve_device, same_device
 
 C128 = torch.complex128
 
@@ -44,21 +44,27 @@ class SPMF:
     """T(z) = sum_j f_j(z) A_j.
 
     terms: (A_j, f_j) pairs; A_j numpy arrays or tensors (moved to
-    `device` as complex128), f_j complex tensor -> complex tensor."""
+    `device`), f_j complex tensor -> complex tensor.  dtype: the storage
+    dtype of the A_j, real or complex (the JAX package's argument; default
+    complex128).  The Gram tensor is formed from the inputs in complex128,
+    as the JAX package forms it from its host inputs."""
 
-    def __init__(self, terms: Sequence[Tuple[object, Callable]], device="cuda"):
+    def __init__(self, terms: Sequence[Tuple[object, Callable]], device="cuda",
+                 dtype=None):
         dev = resolve_device(device)
         self.device = dev
+        self.dtype = C128 if dtype is None else cx.complex_dtype(dtype)
         self.funcs: List[Callable] = [f for _, f in terms]
-        self.mats: List[torch.Tensor] = [as_tensor(A, C128, dev) for A, _ in terms]
-        self.n = self.mats[0].shape[0]
-        self.d = len(self.mats)
+        mats = [as_tensor(A, C128, dev) for A, _ in terms]
+        self.n = mats[0].shape[0]
+        self.d = len(mats)
         G = torch.empty((self.d, self.d), dtype=C128, device=dev)
         for j in range(self.d):
             for k in range(j, self.d):
-                G[j, k] = torch.vdot(self.mats[j].reshape(-1), self.mats[k].reshape(-1))
+                G[j, k] = torch.vdot(mats[j].reshape(-1), mats[k].reshape(-1))
                 G[k, j] = G[j, k].conj()
         self._gram = G
+        self.mats: List[torch.Tensor] = [A.to(self.dtype) for A in mats]
 
     # -- evaluation ---------------------------------------------------------
     def coeffs(self, lam: torch.Tensor) -> torch.Tensor:
@@ -83,7 +89,7 @@ class SPMF:
         (d, N, n, n) stack.  out: an (N, n, n) tensor (a view into a larger
         buffer, such as the zero-padded one of the K1 route) that receives
         the result in place."""
-        dt = out_dtype or C128
+        dt = out_dtype or self.dtype
         N = z.shape[0]
         if out is None:
             out = torch.zeros((N, self.n, self.n), dtype=dt, device=self.device)
@@ -105,7 +111,7 @@ class SPMF:
         flat = V.permute(1, 0, 2).reshape(n, N * m)
         out = torch.zeros_like(V)
         for j in range(self.d):
-            AV = (self.mats[j] @ flat).reshape(n, N, m).permute(1, 0, 2)
+            AV = (self.mats[j].to(V.dtype) @ flat).reshape(n, N, m).permute(1, 0, 2)
             out = out + co[j][:, None, None] * AV
         return out
 
@@ -114,7 +120,7 @@ class SPMF:
         co = self.coeffs(lam)                            # (d, m)
         out = torch.zeros_like(X)
         for j in range(self.d):
-            out = out + cx.scale_cols(self.mats[j] @ X, co[j])
+            out = out + cx.scale_cols(self.mats[j].to(X.dtype) @ X, co[j])
         return out
 
     def fro_norms(self, lam: torch.Tensor) -> torch.Tensor:
@@ -127,13 +133,14 @@ class SPMF:
 class PolynomialNEP(SPMF):
     """T(z) = A_0 + A_1 z + ... + A_d z^d."""
 
-    def __init__(self, coeff_mats: Sequence, device="cuda"):
+    def __init__(self, coeff_mats: Sequence, device="cuda", dtype=None):
         def monomial(p):
             if p == 0:
                 return one
             return lambda z: cx.cpow_scalar(z, p)
 
-        super().__init__([(A, monomial(p)) for p, A in enumerate(coeff_mats)], device)
+        super().__init__([(A, monomial(p)) for p, A in enumerate(coeff_mats)], device,
+                         dtype)
         self.degree = len(self.mats) - 1
 
 
@@ -141,25 +148,27 @@ class LinearPencilNEP(SPMF):
     """T(z) = A - z B (B = I when omitted): linear problems through the
     nonlinear solvers."""
 
-    def __init__(self, A, B=None, device="cuda"):
+    def __init__(self, A, B=None, device="cuda", dtype=None):
         if B is None:
             B = torch.eye(A.shape[0], dtype=C128)
-        super().__init__([(A, one), (B, neg_z)], device)
+        super().__init__([(A, one), (B, neg_z)], device, dtype)
 
 
 class CallableNEP:
     """A host callable z -> numpy matrix.  Node matrices are built on the
-    host and moved to `device`; the residuals T(lam) x run on the host."""
+    host and moved to `device` (as `dtype`, default complex128, unless the
+    caller names another); the residuals T(lam) x run on the host."""
 
-    def __init__(self, fn: Callable, n: int, device="cuda"):
+    def __init__(self, fn: Callable, n: int, device="cuda", dtype=None):
         self.fn = fn
         self.n = n
         self.device = resolve_device(device)
+        self.dtype = C128 if dtype is None else cx.complex_dtype(dtype)
 
     def eval_nodes(self, z: torch.Tensor, out_dtype=None, out=None) -> torch.Tensor:
         mats = np.stack([np.asarray(self.fn(complex(zi)), dtype=np.complex128)
                          for zi in z.cpu().numpy()])
-        T = torch.as_tensor(mats, dtype=out_dtype or C128, device=self.device)
+        T = torch.as_tensor(mats, dtype=out_dtype or self.dtype, device=self.device)
         if out is None:
             return T
         out.copy_(T)
@@ -175,29 +184,20 @@ class CallableNEP:
                          for l in lamn])
 
 
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    """Whether two devices name the same one ("cuda" is the current card)."""
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    cur = torch.cuda.current_device()
-    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
-
-
-def as_nep(T, n=None, device="cuda"):
+def as_nep(T, n=None, dtype=None, device="cuda"):
     """Coerce user input into a NEP on `device`: an SPMF or CallableNEP as
     it is (its device must match), a host callable (needs n), or a list of
-    polynomial coefficients."""
+    polynomial coefficients; `dtype` goes to the last two, as in the JAX
+    package."""
     dev = resolve_device(device)
     if isinstance(T, (SPMF, CallableNEP)):
-        if not _same_device(T.device, dev):
+        if not same_device(T.device, dev):
             raise ValueError(f"NEP lives on {T.device}, the solve runs on {dev}")
         return T
     if callable(T):
         if n is None:
             raise ValueError("CallableNEP needs the problem size n")
-        return CallableNEP(T, n, dev)
+        return CallableNEP(T, n, dev, dtype)
     if isinstance(T, (list, tuple)):
-        return PolynomialNEP(T, dev)
+        return PolynomialNEP(T, dev, dtype)
     raise TypeError(f"cannot interpret {type(T)} as a NEP")

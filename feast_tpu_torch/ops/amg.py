@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import cx
+from .._device import resolve_device
 from . import lu as lumod
 from .sparse import (BELL, CSR, DIA, STRETCH, STRETCHT, RowBlock, _bell_pick, _complex,
                      _per_node, _tensor, dia_able)
@@ -229,13 +230,14 @@ def build_amg_host(A, B=None, *, theta: float = 0.08,
 
 def build_amg(A, B=None, *, theta: float = 0.08, omega: float = 2.0 / 3.0,
               smooth: bool = True, max_coarse: int = 600,
-              max_levels: int = 20, dtype=None, device="cpu",
+              max_levels: int = 20, dtype=None, device="cuda",
               aggregate: str = "auto", agg_size: int = 3) -> AMG:
     """Build the shift-independent hierarchy from scipy-sparse (or dense)
     A and optional B (defaults to identity).  Host-side setup; returns
     tensors on `device` ready for `shifted_preconditioner`.  dtype: real
     or complex storage dtype (default complex128)."""
     dtype = _complex(dtype)
+    device = resolve_device(device)
     host_levels, Ac, Bc, strides = build_amg_host(
         A, B, theta=theta, omega=omega, smooth=smooth,
         max_coarse=max_coarse, max_levels=max_levels,

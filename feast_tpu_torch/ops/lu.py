@@ -16,14 +16,15 @@ Semantics kept from the JAX package:
   * `lu_diag_inv` inverts the diagonal blocks of L and U so repeated
     solves become matmuls (`lu_solve(dinv=...)`).
 
-Dispatch: every complex64 CUDA matrix is factored by
-`panel_lu.lu_factor_panel`, whose panels are the hand-written Hopper
-kernel (the JAX package's gate at feast_tpu/ops/lu.py:413-415 sends f32
-matrices with n % 128 == 0 to its Pallas panel kernel).  An n that is not
-a multiple of 128 is zero-padded to the next multiple, factored, and
+Dispatch (`lu_factor(loop="auto")`): while the panel backend is "pallas"
+(the default, `set_panel_backend`), every complex64 CUDA matrix is
+factored by `panel_lu.lu_factor_panel`, whose panels are the hand-written
+Hopper kernel (the JAX package's gate at feast_tpu/ops/lu.py:413-415 sends
+f32 matrices with n % 128 == 0 to its Pallas panel kernel).  An n that is
+not a multiple of 128 is zero-padded to the next multiple, factored, and
 cropped (`factor_buffer`, `lu_factor_inplace`).  Everything else (CPU
-tensors, complex128) takes the plain blocked path below, as the JAX
-package does on the CPU.
+tensors, complex128, and every matrix under the "xla" backend) takes the
+plain blocked path below, as the JAX package does on the CPU.
 """
 
 from __future__ import annotations
@@ -148,15 +149,41 @@ def _auto_block(n: int) -> int:
     return 64 if n <= 512 else 128
 
 
+# The panel route of complex64 CUDA factors under loop="auto", the JAX
+# package's switch (feast_tpu/ops/lu.py:376): "pallas" takes the panel
+# kernel, "xla" the plain blocked loop.
+_PANEL_BACKEND = "pallas"
+
+
+def set_panel_backend(name: str):
+    """Select the panel route of `lu_factor(loop="auto")` for complex64
+    matrices on the card, as the JAX package's switch of the same name:
+      "pallas": the hand-written panel kernel (K1, csrc/panel_lu.cu) through
+                `panel_lu.lu_factor_panel`, one launch per 128-column panel
+                (the default);
+      "xla":    the plain blocked loop of `lu_factor` on the card, with no
+                K1 launch.
+    Every driver's factor goes through that "auto" route, so "xla" takes
+    K1 out of all of them.  CPU tensors and complex128 take the plain loop
+    under either name."""
+    global _PANEL_BACKEND
+    if name not in ("xla", "pallas"):
+        raise ValueError(f"unknown panel backend {name!r}")
+    _PANEL_BACKEND = name
+
+
 def _kernel_route(dtype: torch.dtype, device: torch.device) -> bool:
-    return dtype == torch.complex64 and device.type == "cuda"
+    """Whether loop="auto" sends a factor of this dtype and device to K1."""
+    return (_PANEL_BACKEND == "pallas" and dtype == torch.complex64
+            and device.type == "cuda")
 
 
 def factor_buffer(batch, n: int, dtype: torch.dtype, device) -> torch.Tensor:
     """A zeroed (*batch, n_pad, n_pad) buffer to fill in its leading n x n
     block and factor with `lu_factor_inplace`: n_pad is n rounded up to a
-    multiple of 128 on the kernel route (complex64 on CUDA), n elsewhere.
-    Writing the matrices straight into it spares a second copy of them."""
+    multiple of 128 on the kernel route (complex64 on CUDA under the
+    "pallas" backend), n elsewhere.  Writing the matrices straight into it
+    spares a second copy of them."""
     device = torch.device(device)
     n_pad = -(-n // 128) * 128 if _kernel_route(dtype, device) else n
     return torch.zeros(tuple(batch) + (n_pad, n_pad), dtype=dtype, device=device)
@@ -166,10 +193,15 @@ def lu_factor_inplace(buf: torch.Tensor, n: int):
     """Factor a `factor_buffer` whose leading n x n blocks hold the
     matrices; returns (LU, perm) of those, LU a view of `buf`.
 
-    On the kernel route `buf` is factored in place by the panel kernel
-    (K1) at its padded size and cropped to the leading n x n block and the
-    first n entries of perm.  The padding is zeros, not an identity
-    extension:
+    The route is the one `factor_buffer` chose, read from the buffer's
+    shape, so a backend switched in between changes nothing: a padded
+    buffer goes to the panel kernel (K1), an unpadded one whose n is not a
+    multiple of 128 to the plain loop; at n % 128 == 0, where both routes
+    take the same shape, the route of `lu_factor(loop="auto")`.
+
+    On the kernel route `buf` is factored in place at its padded size and
+    cropped to the leading n x n block and the first n entries of perm.
+    The padding is zeros, not an identity extension:
       * every pivot stays in A's rows: the pad rows are zero in A's columns
         and stay zero (their multipliers are 0), and a tie, an all-zero
         column included, goes to the lowest index, which is row k itself;
@@ -181,37 +213,74 @@ def lu_factor_inplace(buf: torch.Tensor, n: int):
       * the pad columns end with zero pivots, replaced by that floor, and
         zero multipliers: they touch nothing of A.
     Elsewhere `buf` is n x n and takes `lu_factor`'s plain path."""
-    if not _kernel_route(buf.dtype, buf.device):
-        return lu_factor(buf)
-    from . import panel_lu
+    if buf.shape[-1] != n or (n % 128 == 0 and _kernel_route(buf.dtype, buf.device)):
+        from . import panel_lu
 
-    LU, perm = panel_lu.lu_factor_panel(buf, inplace=True)
-    return LU[..., :n, :n], perm[..., :n]
+        LU, perm = panel_lu.lu_factor_panel(buf, inplace=True)
+        return LU[..., :n, :n], perm[..., :n]
+    return _lu_factor_plain(buf, _auto_block(n))
 
 
-def lu_factor(A: torch.Tensor, block: int = 0):
+def _check_kernel_input(A: torch.Tensor):
+    """Readable errors for an explicit loop="pallas" the kernel cannot take
+    (the JAX package's checks, feast_tpu/ops/pallas_lu.py:247-262)."""
+    if A.dtype != torch.complex64:
+        raise ValueError(
+            f"lu_factor(loop='pallas') needs complex64 matrices (got {A.dtype}); "
+            "the panel kernel is complex64-only: use loop='auto' for the "
+            "dtype-gated choice")
+    if A.device.type != "cuda":
+        raise ValueError(
+            f"lu_factor(loop='pallas') needs a CUDA tensor (got {A.device}); "
+            "the panel kernel runs on the card only: use loop='auto', or "
+            "panel_lu.lu_factor_panel(A, panel=panel_lu.panel_factor_plain) "
+            "for its plain version")
+
+
+def lu_factor(A: torch.Tensor, block: int = 0, loop: str = "auto"):
     """Blocked LU with partial pivoting: P A = L U, over leading batch dims.
 
     Returns (LU, perm): L (unit diagonal) and U packed in LU, and perm the
     row permutation as an index vector (`lu_solve` uses B[perm]).
-    block=0 picks the panel width from n; the kernel route (complex64 on
-    CUDA) takes panels of `block` (default 128) columns when n is a
-    multiple of 128, and of 128 on the zero-padded matrix otherwise
-    (`lu_factor_inplace`)."""
+
+    loop, the JAX package's names:
+      "unrolled": the plain blocked loop, panels of `block` columns (0: 64
+                  up to n = 512, 128 above);
+      "fori":     the same loop with the JAX "fori" default of 512-column
+                  panels (the port's loop is one shape for both);
+      "pallas":   the panel kernel (K1), explicitly: complex64 on CUDA
+                  only, else ValueError; panels of `block` (default 128)
+                  columns when n is a multiple of 128, and of 128 on the
+                  zero-padded matrix otherwise (`lu_factor_inplace`);
+      "auto":     "pallas" for complex64 on CUDA while the panel backend is
+                  "pallas" (`set_panel_backend`), else "unrolled"."""
     n = A.shape[-1]
     if A.shape[-2] != n:
         raise ValueError(f"lu_factor expects square matrices, got {tuple(A.shape)}")
-    if _kernel_route(A.dtype, A.device):
+    if loop == "pallas":
+        _check_kernel_input(A)
+    if loop == "pallas" or (loop == "auto" and _kernel_route(A.dtype, A.device)):
         from . import panel_lu
 
         if n % 128 == 0:
             return panel_lu.lu_factor_panel(A, block=block or 128)
-        buf = factor_buffer(A.shape[:-2], n, A.dtype, A.device)
+        buf = torch.zeros(A.shape[:-2] + (-(-n // 128) * 128,) * 2,
+                          dtype=A.dtype, device=A.device)
         buf[..., :n, :n] = A
         return lu_factor_inplace(buf, n)
+    if loop in ("auto", "unrolled"):
+        return _lu_factor_plain(A, block or _auto_block(n))
+    if loop == "fori":
+        return _lu_factor_plain(A, block or 512)
+    raise ValueError(f"unknown lu_factor loop {loop!r}; "
+                     "expected 'auto', 'unrolled', 'fori' or 'pallas'")
+
+
+def _lu_factor_plain(A: torch.Tensor, block: int):
+    """The plain blocked loop of `lu_factor`, panels of `block` columns."""
+    n = A.shape[-1]
     A3, batch = _flat(A, 2)
     A3 = A3.clone()
-    block = block or _auto_block(n)
     Bsz = A3.shape[0]
     perm = torch.arange(n, device=A.device).repeat(Bsz, 1)
     for j in range(0, n, block):
@@ -241,16 +310,22 @@ def lu_factor(A: torch.Tensor, block: int = 0):
 
 
 def lu_solve(LU: torch.Tensor, perm: torch.Tensor, B: torch.Tensor,
-             block: int = 0, dinv=None) -> torch.Tensor:
+             block: int = 0, loop: str = "auto", dinv=None) -> torch.Tensor:
     """Solve A X = B from (LU, perm) of `lu_factor`; B is (..., n, k) and
     broadcasts against the factors' batch dims.
 
-    dinv: optional (invL, invU) from `lu_diag_inv` — each diagonal-block
-    substitution becomes a matmul; the block size is then taken from it."""
+    loop: "auto" or "unrolled" (blocks of 64 up to n = 512, 128 above) or
+    "fori" (the JAX default of 512); the port has one blocked solve for
+    all three.  dinv: optional (invL, invU) from `lu_diag_inv` — each
+    diagonal-block substitution becomes a matmul; the block size is then
+    taken from it."""
+    if loop not in ("auto", "unrolled", "fori"):
+        raise ValueError(f"unknown lu_solve loop {loop!r}; "
+                         "expected 'auto', 'unrolled' or 'fori'")
     n = LU.shape[-1]
     if dinv is not None:
         block = dinv[0].shape[-1]
-    block = block or _auto_block(n)
+    block = block or (512 if loop == "fori" else _auto_block(n))
     batch = torch.broadcast_shapes(LU.shape[:-2], B.shape[:-2])
     B = B.expand(batch + B.shape[-2:])
     idx = perm.expand(batch + (n,))[..., None].expand(batch + (n, B.shape[-1]))

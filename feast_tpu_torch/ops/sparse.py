@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import cx
+from .._device import resolve_device, same_device
 from . import dia_kernel
 
 _SPMM_BACKEND = "cuda"
@@ -61,9 +62,10 @@ class CSR:
         self.shape = tuple(shape)
 
     @classmethod
-    def from_scipy(cls, A, dtype=None, device="cpu"):
+    def from_scipy(cls, A, dtype=None, device="cuda"):
         import scipy.sparse as sp
 
+        device = resolve_device(device)
         A = sp.csr_matrix(A)
         row_ids = np.repeat(np.arange(A.shape[0], dtype=np.int64), np.diff(A.indptr))
         return cls(_tensor(A.data.astype(np.complex128), _complex(dtype), device),
@@ -71,7 +73,7 @@ class CSR:
                    torch.as_tensor(row_ids, device=device), A.shape)
 
     @classmethod
-    def from_dense(cls, A, dtype=None, device="cpu"):
+    def from_dense(cls, A, dtype=None, device="cuda"):
         import scipy.sparse as sp
 
         return cls.from_scipy(sp.csr_matrix(np.asarray(A)), dtype, device)
@@ -115,9 +117,10 @@ class DIA:
         self.shape = tuple(shape)
 
     @classmethod
-    def from_scipy(cls, A, dtype=None, device="cpu"):
+    def from_scipy(cls, A, dtype=None, device="cuda"):
         import scipy.sparse as sp
 
+        device = resolve_device(device)
         Ad = sp.dia_matrix(sp.csr_matrix(A))
         n, m = Ad.shape
         offs = [int(o) for o in Ad.offsets]
@@ -293,22 +296,24 @@ class BELL:
                      for v in (values or (vals,)))
 
     @classmethod
-    def from_scipy(cls, A, bs: int = 16, dtype=None, kcap="auto", device="cpu"):
+    def from_scipy(cls, A, bs: int = 16, dtype=None, kcap="auto", device="cuda"):
         import scipy.sparse as sp
 
+        device = resolve_device(device)
         A = sp.csr_matrix(A)
         return cls.from_structure(cls._structure(A, bs, kcap), bs, A.shape,
                                   _complex(dtype), device)[0]
 
     @classmethod
     def pair_from_scipy(cls, Au, Bu, bs: int = 16, dtype=None, kcap="auto",
-                        device="cpu"):
+                        device="cuda"):
         """Two matrices on one shared structure (the AMG union pairs, so
         S(z) = A - z B combines data elementwise).  Au and Bu must have the
         same sparsity pattern (`amg._union_pair` gives it); the block
         structure and any spill split are built once, from Au."""
         import scipy.sparse as sp
 
+        device = resolve_device(device)
         Au = sp.csr_matrix(Au).sorted_indices()
         Bu = sp.csr_matrix(Bu).sorted_indices()
         return cls.from_structure(cls._structure(Au, bs, kcap), bs, Au.shape,
@@ -409,11 +414,12 @@ class STRETCH:
         return self.data.numel()  # stored entries (DIA convention)
 
     @classmethod
-    def from_scipy(cls, P, stride, dtype=None, device="cpu", max_depth: int = 24):
+    def from_scipy(cls, P, stride, dtype=None, device="cuda", max_depth: int = 24):
         """Convert a scipy sparse P, or return None when the pattern does
         not fit the stride-band form (then CSR applies)."""
         import scipy.sparse as sp
 
+        device = resolve_device(device)
         P = sp.csr_matrix(P)
         P.sum_duplicates()
         coo = P.tocoo()
@@ -635,7 +641,7 @@ def bell_pick_bs(A, dtype=None, max_bytes: float = 1.0e9):
     return _bell_pick(sp.csr_matrix(A), dtype, max_bytes)[0]
 
 
-def as_operator(A, dtype=None, device="cpu", dia_fill: float = 0.45,
+def as_operator(A, dtype=None, device="cuda", dia_fill: float = 0.45,
                 bell_bs=None, bell_max_fill: float = 32.0,
                 bell_max_bytes: float = 1.0e9):
     """Coerce scipy-sparse / dense / tensor / CSR / DIA / BELL to a device
@@ -646,8 +652,17 @@ def as_operator(A, dtype=None, device="cpu", dia_fill: float = 0.45,
          `bell_max_bytes` cap; `bell_bs` pins it (then `bell_max_fill`
          guards it);
       3. CSR as the last resort.
-    Dense input becomes a complex tensor; None and operators pass through."""
-    if A is None or isinstance(A, (CSR, DIA, BELL, RowBlock)):
+    Dense input becomes a complex tensor; None passes through, and so does
+    an operator, which must already live on `device` (ValueError
+    otherwise: it is never moved behind the caller's back)."""
+    device = resolve_device(device)
+    if A is None:
+        return A
+    if isinstance(A, (CSR, DIA, BELL, RowBlock)):
+        if not same_device(A.data.device, device):
+            raise ValueError(f"as_operator: the {type(A).__name__} operator lives on "
+                             f"{A.data.device}, the solve runs on {device}; build it "
+                             f"with device={str(device)!r}")
         return A
     import scipy.sparse as sp
 

@@ -139,13 +139,13 @@ def build_sharded_amg(A, B, d_row: int, dtype=torch.complex128, device="cuda",
                       torch.as_tensor(Bc, device=device).to(dtype))
 
 
-def node_row_diag(A, B, n: int):
+def node_row_diag(A_sp, B_sp, n: int):
     """Host diagonals (dA, dB) of the pencil for the Jacobi preconditioner
-    (B=None: ones)."""
+    (B_sp=None: ones)."""
     import scipy.sparse as sp
 
-    dA = sp.csr_matrix(A).diagonal()
-    dB = np.ones(n) if B is None else sp.csr_matrix(B).diagonal()
+    dA = sp.csr_matrix(A_sp).diagonal()
+    dB = np.ones(n) if B_sp is None else sp.csr_matrix(B_sp).diagonal()
     return dA.astype(np.complex128), dB.astype(np.complex128)
 
 

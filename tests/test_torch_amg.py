@@ -73,7 +73,7 @@ def test_build_amg_matches_jax_hierarchy(aggregate):
     """Same levels, sizes, formats (BELL where the JAX package stores BELL)
     and data (1e-12) from the port's own host setup."""
     n = 3000
-    ht = tamg.build_amg(lap1d(n), mass1d(n), aggregate=aggregate)
+    ht = tamg.build_amg(lap1d(n), mass1d(n), aggregate=aggregate, device="cpu")
     hj = jamg.build_amg(lap1d(n), mass1d(n), aggregate=aggregate)
     assert len(ht.levels) == len(hj.levels) >= 1
     assert tamg.hierarchy_nnz(ht)[0] == jamg.hierarchy_nnz(hj)[0]
@@ -113,7 +113,7 @@ def test_vcycle_matches_jax_on_carried_hierarchy(dtype, tol):
     """One V-cycle on the JAX hierarchy carried across by interop."""
     n = 1500
     hj = jamg.build_amg(lap1d(n), mass1d(n), max_coarse=100)
-    ht = interop.amg_from(hj)
+    ht = interop.amg_from(hj, device="cpu")
     assert len(ht.levels) == len(hj.levels) and ht.Ac.dtype == torch.complex128
     zc = -0.5 + 0.1j
     X = _rand(np.random.default_rng(3), n, 3)
@@ -139,7 +139,7 @@ def test_vcycle_strength_aggregates_2d_matches_jax():
     complex128."""
     N = 30
     K, B = _grid_pencil(N)
-    ht = tamg.build_amg(K, B, aggregate="strength", max_coarse=30)
+    ht = tamg.build_amg(K, B, aggregate="strength", max_coarse=30, device="cpu")
     hj = jamg.build_amg(K, B, aggregate="strength", max_coarse=30)
     assert len(ht.levels) == len(hj.levels) >= 2
     assert isinstance(ht.levels[0].A_op, tsp.DIA)
@@ -185,7 +185,7 @@ def test_deep_auto_hierarchy_vcycle_matches_jax_and_scipy():
 
     want = vcycle(0, b)
     got = tamg.shifted_preconditioner(
-        tamg.build_amg(K, B, max_coarse=20),
+        tamg.build_amg(K, B, max_coarse=20, device="cpu"),
         torch.tensor(zc, dtype=torch.complex128))(torch.as_tensor(b)).numpy()
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-10
     gotj = jcx.to_numpy(jamg.shifted_preconditioner(
@@ -206,10 +206,10 @@ def test_auto_aggregation_stalls_on_deep_2d_hierarchy():
     zc = _lowest_node(N)
     zt = torch.tensor(zc, dtype=torch.complex128)
     b = _rand(np.random.default_rng(0), N * N, 2)
-    mv = tsp.shifted_matvec(tsp.as_operator(K), tsp.as_operator(B), zt)
+    mv = tsp.shifted_matvec(tsp.as_operator(K, device="cpu"), tsp.as_operator(B, device="cpu"), zt)
     sols = {}
     for aggregate in ("auto", "strength"):
-        h = tamg.build_amg(K, B, max_coarse=8, aggregate=aggregate)
+        h = tamg.build_amg(K, B, max_coarse=8, aggregate=aggregate, device="cpu")
         assert len(h.levels) >= 5
         sols[aggregate] = tkr.bicgstab_rr(mv, torch.as_tensor(b), tol=1e-9, maxiter=120,
                                           M=tamg.shifted_preconditioner(h, zt))
@@ -230,7 +230,7 @@ def test_vcycle_node_axis_and_options():
     package's."""
     n = 1200
     hj = jamg.build_amg(lap1d(n), max_coarse=100)
-    ht = interop.amg_from(hj)
+    ht = interop.amg_from(hj, device="cpu")
     zs = np.array([-0.5 + 0.1j, 0.2 + 0.3j, -0.1 - 0.4j])
     X = _rand(np.random.default_rng(5), 3, n, 2)
     zt = torch.as_tensor(zs)
@@ -246,7 +246,7 @@ def test_vcycle_node_axis_and_options():
 def test_zero_diagonal_guard_and_degenerate_hierarchy():
     # problem already <= max_coarse: no levels, M is the coarse LU solve
     n = 40
-    h = tamg.build_amg(lap1d(n), max_coarse=100)
+    h = tamg.build_amg(lap1d(n), max_coarse=100, device="cpu")
     assert len(h.levels) == 0
     zc = 0.3 + 0.2j
     X = _rand(np.random.default_rng(1), n, 2)
@@ -254,7 +254,7 @@ def test_zero_diagonal_guard_and_degenerate_hierarchy():
         torch.as_tensor(X)).numpy()
     np.testing.assert_allclose((lap1d(n).toarray() - zc * np.eye(n)) @ got, X, atol=1e-12)
     # a shift that zeroes the level diagonal exactly: the guard keeps M finite
-    h2 = tamg.build_amg(lap1d(600), max_coarse=100)
+    h2 = tamg.build_amg(lap1d(600), max_coarse=100, device="cpu")
     M = tamg.shifted_preconditioner(h2, torch.tensor(2.0 + 0j, dtype=torch.complex128))
     out = M(torch.as_tensor(_rand(np.random.default_rng(2), 600, 2)))
     assert bool(torch.isfinite(out.real).all() and torch.isfinite(out.imag).all())
@@ -272,9 +272,9 @@ def test_amg_preconditioned_bicgstab_matches_jax(vdtype):
     zc = complex(3.5 * lam1 + 3.0 * lam1 * np.exp(1j * np.pi / 8))
     b = _rand(np.random.default_rng(4), n, 4)
     hj = jamg.build_amg(A)
-    ht = tamg.build_amg(A)
+    ht = tamg.build_amg(A, device="cpu")
     zj, zt = jcx.as_cx(zc), torch.tensor(zc, dtype=torch.complex128)
-    Aj, At = jsp.CSR.from_scipy(A), tsp.CSR.from_scipy(A)
+    Aj, At = jsp.CSR.from_scipy(A), tsp.CSR.from_scipy(A, device="cpu")
     jdt = None if vdtype is None else jnp.float32
     tdt = None if vdtype is None else torch.float32
     sol_j = jax.jit(lambda h, bb: jkr.bicgstab(

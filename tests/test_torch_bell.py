@@ -58,7 +58,7 @@ def test_bell_product_matches_scipy_and_jax(bs):
     n, m = 237, 190  # not divisible by bs: both paddings
     A = _rand_sparse(n, m, 0.03, 1)
     X = _x(np.random.default_rng(0), m, 7)
-    Ab = tsp.BELL.from_scipy(A, bs)
+    Ab = tsp.BELL.from_scipy(A, bs, device="cpu")
     Aj = jsp.BELL.from_scipy(A, bs)
     Y = Ab.matvec(torch.as_tensor(X)).numpy()
     np.testing.assert_allclose(Y, A @ X, rtol=0, atol=1e-12)
@@ -75,12 +75,12 @@ def test_bell_diagonal_pair_and_spill_match_jax():
     A = _rand_sparse(n, n, 0.05, 3)
     A.setdiag(np.arange(1.0, n + 1.0))
     A = A.tocsr()
-    Ab = tsp.BELL.from_scipy(A, 16)
+    Ab = tsp.BELL.from_scipy(A, 16, device="cpu")
     np.testing.assert_allclose(Ab.diagonal().numpy(), A.diagonal(), rtol=0, atol=0)
     B = A.copy()
     B.data = np.random.default_rng(4).standard_normal(B.nnz) + 0j
     for kcap in ("auto", 2):
-        A1, B1 = tsp.BELL.pair_from_scipy(A, B, 8, kcap=kcap)
+        A1, B1 = tsp.BELL.pair_from_scipy(A, B, 8, kcap=kcap, device="cpu")
         Aj, Bj = jsp.BELL.pair_from_scipy(A, B, 8, kcap=kcap)
         assert A1.colb is B1.colb  # one shared structure (the AMG union invariant)
         assert np.array_equal(A1.colb.numpy(), np.asarray(Aj.colb))
@@ -92,7 +92,7 @@ def test_bell_diagonal_pair_and_spill_match_jax():
             assert np.array_equal(A1.spill.indices.numpy(), B1.spill.indices.numpy())
         np.testing.assert_allclose(B1.todense().numpy(), B.toarray(), rtol=0, atol=1e-15)
         np.testing.assert_allclose(A1.diagonal().numpy(), A.diagonal(), rtol=0, atol=1e-15)
-    assert tsp.BELL.pair_from_scipy(A, B, 8, kcap=2)[0].spill is not None
+    assert tsp.BELL.pair_from_scipy(A, B, 8, kcap=2, device="cpu")[0].spill is not None
 
 
 def test_bell_plan_pick_and_bytes_match_jax():
@@ -111,7 +111,7 @@ def test_bell_plan_pick_and_bytes_match_jax():
                 == jsp.bell_hbm_bytes(Kp, bs, jnp.float32))
     # a cap below every candidate leaves CSR
     assert tsp.bell_pick_bs(Kp, max_bytes=1.0) is None
-    assert isinstance(tsp.as_operator(Kp, bell_max_bytes=1.0), tsp.CSR)
+    assert isinstance(tsp.as_operator(Kp, bell_max_bytes=1.0, device="cpu"), tsp.CSR)
 
 
 def test_strength_hierarchy_picks_match_jax_under_binding_caps(monkeypatch):
@@ -154,15 +154,15 @@ def test_strength_hierarchy_picks_match_jax_under_binding_caps(monkeypatch):
 
 def test_as_operator_picks_bell_where_jax_does():
     Kp, _ = _fem_rcm(800, 2)
-    op, opj = tsp.as_operator(Kp), jsp.as_operator(Kp)
+    op, opj = tsp.as_operator(Kp, device="cpu"), jsp.as_operator(Kp)
     assert isinstance(op, tsp.BELL) and isinstance(opj, jsp.BELL)
     assert op.bs == opj.bs and op.kmax == opj.kmax
     X = _x(np.random.default_rng(0), Kp.shape[0], 5)
     np.testing.assert_allclose(op.matvec(torch.as_tensor(X)).numpy(), Kp @ X,
                                rtol=0, atol=1e-12)
-    pinned = tsp.as_operator(Kp, bell_bs=8)
+    pinned = tsp.as_operator(Kp, bell_bs=8, device="cpu")
     assert isinstance(pinned, tsp.BELL) and pinned.bs == 8
-    assert isinstance(tsp.as_operator(Kp, bell_bs=64, bell_max_fill=1.0), tsp.CSR)
+    assert isinstance(tsp.as_operator(Kp, bell_bs=64, bell_max_fill=1.0, device="cpu"), tsp.CSR)
 
 
 def test_aggregate_block_permutation_matches_jax():
@@ -178,7 +178,7 @@ def test_bell_node_batch_chunks_and_raw_matrix(monkeypatch):
     a gather cap small enough to split the block rows into chunks gives
     the same product; `_raw_matrix` rebuilds the matrix, spill included."""
     Kp, Mp = _fem_rcm(500, 4)
-    Ab, Bb = tsp.BELL.pair_from_scipy(Kp, Mp, 8, kcap=3)
+    Ab, Bb = tsp.BELL.pair_from_scipy(Kp, Mp, 8, kcap=3, device="cpu")
     assert Ab.spill is not None
     z = torch.tensor([0.5 + 0.1j, -1.0 + 2.0j], dtype=torch.complex128)
     S = tamg._shifted_op(Ab, Bb, z)
@@ -202,7 +202,7 @@ def test_interop_carries_a_jax_bell_across():
     Kp, _ = _fem_rcm(500, 5)
     for kcap in ("auto", 3):
         Aj = jsp.BELL.from_scipy(Kp, 16, kcap=kcap)
-        At = interop.operator_from(Aj)
+        At = interop.operator_from(Aj, device="cpu")
         assert isinstance(At, tsp.BELL) and At.bs == 16
         assert (At.spill is None) == (Aj.spill is None)
         X = _x(np.random.default_rng(2), Kp.shape[0], 4)
@@ -217,7 +217,7 @@ def test_amg_levels_pick_bell_where_jax_does():
     operator pair, P and R in the JAX package's format and block size; one
     V-cycle from each package's own hierarchy agrees to 1e-10."""
     Kp, Mp = _fem_rcm(1500, 1)
-    ht = tamg.build_amg(Kp, Mp, aggregate="strength", max_coarse=60)
+    ht = tamg.build_amg(Kp, Mp, aggregate="strength", max_coarse=60, device="cpu")
     hj = jamg.build_amg(Kp, Mp, aggregate="strength", max_coarse=60)
     assert len(ht.levels) == len(hj.levels) >= 2
     assert isinstance(ht.levels[0].A_op, tsp.BELL)

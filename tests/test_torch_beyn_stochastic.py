@@ -223,7 +223,7 @@ def test_beyn_extraction_variants():
     A = np.diag(np.arange(1.0, 26.0)).astype(np.complex128)
     X = _rand_c(np.random.default_rng(0), 25, 5)
     k = ft.circular_contour_trapezoidal(1.5 + 0j, 2.0, 16)
-    z, w = k.device_nodes(), k.device_weights()
+    z, w = k.device_nodes(device="cpu"), k.device_weights(device="cpu")
     S = torch.as_tensor(A)[None] - z[:, None, None] * torch.eye(25, dtype=torch.complex128)
     LU, perm = tlu.lu_factor(S)
     terms = tlu.lu_solve(LU, perm, torch.as_tensor(X)) * w[:, None, None]

@@ -63,10 +63,10 @@ def test_interop_contour_and_pairs():
     assert (cp.kind, cp.params) == (cj.kind, tuple(cj.params))
     rng = np.random.default_rng(3)
     M = rng.standard_normal((5, 4)) + 1j * rng.standard_normal((5, 4))
-    t = interop.tensor_from_pair(jcx.from_numpy(M))
+    t = interop.tensor_from_pair(jcx.from_numpy(M), device="cpu")
     assert t.dtype == torch.complex128
     np.testing.assert_array_equal(interop.to_numpy(t), M)
-    t32 = interop.tensor_from_pair(jcx.from_numpy(M, np.float32))
+    t32 = interop.tensor_from_pair(jcx.from_numpy(M, np.float32), device="cpu")
     assert t32.dtype == torch.complex64
 
 

@@ -90,7 +90,7 @@ def test_feast_iterative_dia_slice_matches_jax():
     L = lap1d(n)
     X0 = _rand(np.random.default_rng(0), n, 24)
     kw = dict(c=0.02 + 0j, r=0.02, nodes=8, iters=25, tol=1e-9)
-    opj, opt = jsp.as_operator(L), tsp.as_operator(L)
+    opj, opt = jsp.as_operator(L), tsp.as_operator(L, device="cpu")
     assert isinstance(opj, jsp.DIA) and isinstance(opt, tsp.DIA)
     rj = jt.feast_iterative(opj, None, X0, **kw)
     rt = ft.feast_iterative(opt, None, X0, device="cpu", **kw)
@@ -296,7 +296,8 @@ def test_feast_iterative_reorder_and_preconditioner_forms():
     kw = dict(c=c, r=r, nodes=8, iters=20, tol=1e-9, solve_iters=600)
 
     def callable_precond(z):
-        return tsp.jacobi_preconditioner(tsp.as_operator(Lp), tsp.as_operator(Mp), z)
+        return tsp.jacobi_preconditioner(tsp.as_operator(Lp, device="cpu"),
+                                         tsp.as_operator(Mp, device="cpu"), z)
 
     for precondition, reorder in (("jacobi", "auto"), (callable_precond, None),
                                   (None, "rcm"), (True, False)):

@@ -110,7 +110,7 @@ def test_jacobi_preconditioned_shifted_solve_matches_jax():
     zj = jcx.as_cx(zc)
     out_j = jkr.bicgstab(jsp.shifted_matvec(Aj, None, zj), jcx.from_numpy(B), tol=1e-10,
                          maxiter=2000, M=jsp.jacobi_preconditioner(Aj, None, zj))
-    At = tsp.CSR.from_scipy(L)
+    At = tsp.CSR.from_scipy(L, device="cpu")
     zt = torch.tensor(zc, dtype=torch.complex128)
     out_t = tkr.bicgstab(tsp.shifted_matvec(At, None, zt), torch.as_tensor(B), tol=1e-10,
                          maxiter=2000, M=tsp.jacobi_preconditioner(At, None, zt))

@@ -65,7 +65,8 @@ def sqrt_spmf():
                   (A[1], lambda z: jcx.CX(-z.re, -z.im)),
                   (A[2], lambda z: jcx.csqrt(jcx.CX(z.re - 2.0, z.im)))])
     tT = interop.nep_from(jT, funcs=[torch.ones_like, lambda z: -z,
-                                     lambda z: tcx.csqrt(torch.complex(z.real - 2.0, z.imag))])
+                                     lambda z: tcx.csqrt(torch.complex(z.real - 2.0, z.imag))],
+                          device="cpu")
     return jT, tT, rng
 
 
@@ -116,14 +117,14 @@ def test_polynomial_and_pencil_types_match_jax():
     lam = _rand(rng, 6)
     X = _rand(rng, n, 6)
     jP = jt.PolynomialNEP(coeffs)
-    for tP in (ft.PolynomialNEP(coeffs, device="cpu"), interop.nep_from(jP)):
+    for tP in (ft.PolynomialNEP(coeffs, device="cpu"), interop.nep_from(jP, device="cpu")):
         assert tP.degree == 3
         np.testing.assert_allclose(tP.apply_cols(_t(X), _t(lam)).numpy(),
                                    jcx.to_numpy(jP.apply_cols(jcx.from_numpy(X),
                                                               jcx.from_numpy(lam))),
                                    atol=1e-11)
     jL = jt.LinearPencilNEP(coeffs[0], coeffs[1])
-    tL = interop.nep_from(jL)
+    tL = interop.nep_from(jL, device="cpu")
     assert isinstance(tL, ft.LinearPencilNEP)
     np.testing.assert_allclose(tL.fro_norms(_t(lam)).numpy(),
                                np.asarray(jL.fro_norms(jcx.from_numpy(lam))), rtol=1e-13)
@@ -151,7 +152,7 @@ def test_callable_nep_and_as_nep():
     with pytest.raises(TypeError):
         ft.nep.as_nep(3.0, device="cpu")
     with pytest.raises(ValueError, match="funcs|functions"):
-        interop.nep_from(jt.SPMF([(A, lambda z: z)]))
+        interop.nep_from(jt.SPMF([(A, lambda z: z)]), device="cpu")
 
 
 def test_nep_types_raise_without_cuda(monkeypatch):

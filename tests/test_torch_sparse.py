@@ -43,7 +43,7 @@ def test_dia_matches_jax_and_scipy(n, m, offs):
     rng = np.random.default_rng(n + m)
     Ad = _banded(rng, n, m, offs)
     X = _rand(rng, m, 7)
-    At = tsp.DIA.from_scipy(sp.csr_matrix(Ad))
+    At = tsp.DIA.from_scipy(sp.csr_matrix(Ad), device="cpu")
     Aj = jsp.DIA.from_scipy(sp.csr_matrix(Ad))
     assert At.offsets == Aj.offsets and At.shape == Aj.shape
     assert At.nnz == Aj.nnz and At.ndiag == Aj.ndiag
@@ -55,9 +55,9 @@ def test_dia_matches_jax_and_scipy(n, m, offs):
     k = min(n, m)
     np.testing.assert_allclose(At.diagonal().numpy()[:k], np.diag(Ad)[:k], atol=1e-12)
     # CSR -> DIA roundtrip, and the interop carrier
-    A2 = tsp.DIA.from_csr(tsp.CSR.from_scipy(sp.csr_matrix(Ad)))
+    A2 = tsp.DIA.from_csr(tsp.CSR.from_scipy(sp.csr_matrix(Ad), device="cpu"))
     np.testing.assert_allclose(A2.matvec(torch.as_tensor(X)).numpy(), Ad @ X, atol=1e-12)
-    A3 = interop.operator_from(Aj)
+    A3 = interop.operator_from(Aj, device="cpu")
     np.testing.assert_allclose(A3.matvec(torch.as_tensor(X)).numpy(), got, atol=1e-12)
 
 
@@ -66,7 +66,7 @@ def test_csr_matches_jax_and_scipy():
     n = 50
     Ad = (sp.random(n, n, density=0.1, random_state=3).toarray()
           + 1j * sp.random(n, n, density=0.1, random_state=4).toarray())
-    At = tsp.CSR.from_scipy(sp.csr_matrix(Ad))
+    At = tsp.CSR.from_scipy(sp.csr_matrix(Ad), device="cpu")
     Aj = jsp.CSR.from_scipy(sp.csr_matrix(Ad))
     X = _rand(rng, n, 7)
     got = At.matvec(torch.as_tensor(X)).numpy()
@@ -75,9 +75,9 @@ def test_csr_matches_jax_and_scipy():
     np.testing.assert_allclose(At.diagonal().numpy(), np.diag(Ad), atol=1e-12)
     np.testing.assert_allclose(At.todense().numpy(), Ad, atol=1e-12)
     assert At.nnz == Aj.nnz
-    A3 = interop.operator_from(Aj)
+    A3 = interop.operator_from(Aj, device="cpu")
     np.testing.assert_allclose(A3.matvec(torch.as_tensor(X)).numpy(), got, atol=1e-12)
-    Ab = tsp.CSR.from_dense(Ad)
+    Ab = tsp.CSR.from_dense(Ad, device="cpu")
     np.testing.assert_allclose(Ab.matvec(torch.as_tensor(X)).numpy(), got, atol=1e-12)
 
 
@@ -91,7 +91,7 @@ def test_stretch_matches_jax_and_scipy(n, stride):
     Pt = sp.csr_matrix((np.ones(n), (np.arange(n), np.arange(n) // stride)), shape=(n, nc))
     P = ((sp.identity(n) - 0.3 * L) @ Pt).tocsr().astype(np.complex128)
     P.data = P.data * (1 + 0.2j)
-    St = tsp.STRETCH.from_scipy(P, stride)
+    St = tsp.STRETCH.from_scipy(P, stride, device="cpu")
     Sj = jsp.STRETCH.from_scipy(P, stride)
     assert St.offsets == Sj.offsets and St.nnz == Sj.nnz
     Xc, Y = _rand(rng, nc, 5), _rand(rng, n, 5)
@@ -105,10 +105,11 @@ def test_stretch_matches_jax_and_scipy(n, stride):
     down = Rt.matvec(torch.as_tensor(Y)).numpy()
     np.testing.assert_allclose(down, Pd.conj().T @ Y, atol=1e-12)
     np.testing.assert_allclose(down, jcx.to_numpy(Sj.rmatvec(jcx.from_numpy(Y))), atol=1e-12)
-    Rc = interop.operator_from(jsp.STRETCHT(Sj))
+    Rc = interop.operator_from(jsp.STRETCHT(Sj), device="cpu")
     np.testing.assert_allclose(Rc.matvec(torch.as_tensor(Y)).numpy(), down, atol=1e-12)
     # a pattern off the stride band has no STRETCH form
-    assert tsp.STRETCH.from_scipy(sp.random(n, nc + 1, density=0.2, random_state=0), stride) is None
+    assert tsp.STRETCH.from_scipy(sp.random(n, nc + 1, density=0.2, random_state=0), stride,
+                                  device="cpu") is None
 
 
 def test_operators_batch_over_nodes():
@@ -121,7 +122,8 @@ def test_operators_batch_over_nodes():
     z = _rand(rng, nodes)
     X = _rand(rng, nodes, n, m)
     for cls in (tsp.DIA, tsp.CSR):
-        A, B = cls.from_scipy(sp.csr_matrix(Ad)), cls.from_scipy(sp.csr_matrix(Bd))
+        A = cls.from_scipy(sp.csr_matrix(Ad), device="cpu")
+        B = cls.from_scipy(sp.csr_matrix(Bd), device="cpu")
         shared = A.matvec(torch.as_tensor(X)).numpy()
         zt = torch.as_tensor(z)
         data = A.data - zt.reshape((nodes,) + (1,) * A.data.dim()) * B.data
@@ -149,17 +151,18 @@ def test_shifted_matvec_and_jacobi_match_jax(kind):
     zc = 3.0 + 0.5j
     X = _rand(rng, n, 3)
     if kind == "csr":
-        At, Bt = tsp.CSR.from_scipy(L), tsp.CSR.from_scipy(Md)
+        At, Bt = tsp.CSR.from_scipy(L, device="cpu"), tsp.CSR.from_scipy(Md, device="cpu")
         Aj, Bj = jsp.CSR.from_scipy(L), jsp.CSR.from_scipy(Md)
     elif kind == "dia":
-        At, Bt = tsp.as_operator(L), tsp.as_operator(Md)
+        At, Bt = tsp.as_operator(L, device="cpu"), tsp.as_operator(Md, device="cpu")
         Aj, Bj = jsp.as_operator(L), jsp.as_operator(Md)
         assert isinstance(At, tsp.DIA) and isinstance(Aj, jsp.DIA)
     elif kind == "dense":
-        At, Bt = tsp.as_operator(L.toarray()), tsp.as_operator(Md.toarray())
+        At = tsp.as_operator(L.toarray(), device="cpu")
+        Bt = tsp.as_operator(Md.toarray(), device="cpu")
         Aj, Bj = jsp.as_operator(L.toarray()), jsp.as_operator(Md.toarray())
     else:
-        At, Bt = tsp.as_operator(L), None
+        At, Bt = tsp.as_operator(L, device="cpu"), None
         Aj, Bj = jsp.as_operator(L), None
     Bd = np.eye(n) if Bt is None else Md.toarray()
     zt = torch.tensor(zc, dtype=torch.complex128)
@@ -176,15 +179,15 @@ def test_as_operator_selection_and_bell_stub():
     n = 200
     L = sp.diags([np.full(n, 2.0), -np.ones(n - 1), -np.ones(n - 1)],
                  [0, 1, -1], format="csr").astype(np.complex128)
-    assert isinstance(tsp.as_operator(L), tsp.DIA)
+    assert isinstance(tsp.as_operator(L, device="cpu"), tsp.DIA)
     R = sp.random(n, n, density=0.05, random_state=0).astype(np.complex128).tocsr()
     # off the band both packages pick BELL, at the same block size
-    assert isinstance(tsp.as_operator(R), tsp.BELL)
+    assert isinstance(tsp.as_operator(R, device="cpu"), tsp.BELL)
     assert isinstance(jsp.as_operator(R), jsp.BELL)
-    assert tsp.as_operator(R).bs == jsp.as_operator(R).bs
-    assert tsp.as_operator(None) is None
-    op = tsp.as_operator(L, torch.float32)
-    assert op.data.dtype == torch.complex64 and tsp.as_operator(op) is op
+    assert tsp.as_operator(R, device="cpu").bs == jsp.as_operator(R).bs
+    assert tsp.as_operator(None, device="cpu") is None
+    op = tsp.as_operator(L, torch.float32, device="cpu")
+    assert op.data.dtype == torch.complex64 and tsp.as_operator(op, device="cpu") is op
 
 
 # the port's plain DIA product in complex64 against the Pallas kernel in
@@ -204,7 +207,7 @@ def test_dia_plain_matches_pallas_interpret(offs, n, m, monkeypatch):
     X = _rand(rng, n, m)
     want = jcx.to_numpy(pk.dia_matvec_pallas(jsp.DIA.from_scipy(A, jnp.float32),
                                              jcx.from_numpy(X, jnp.float32), bn=256))
-    At = tsp.DIA.from_scipy(A, torch.float32)
+    At = tsp.DIA.from_scipy(A, torch.float32, device="cpu")
     Xt = torch.as_tensor(X, dtype=torch.complex64)
     got = At.matvec(Xt)           # on the CPU the wrapper takes the plain version
     assert got.dtype == torch.complex64
