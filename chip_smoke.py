@@ -45,14 +45,27 @@ Phases, each printing one JSON line:
   small   feast_compiled on the bench problem at n = 512 against LAPACK
           eigenvalues (numpy)
   main    feast_compiled(mixed_prec=True) on bench.py's problem (n = 4096,
-          m0 = 48, 16 trapezoid nodes, tol 1e-10, iters 20): the kernels'
-          launch counters are zeroed just before the first run and read
-          just after it; then best of 3 walls, each solve timing its own
-          factor phase; every inside Ritz pair's residual recomputed on the
-          host in float64
-  profile two more main-path solves: per driver phase host walls (each phase
-          synchronized), then one under torch.profiler for the device busy
-          share, kernel launch calls and the kernels with most device time
+          m0 = 48, 16 trapezoid nodes, tol 1e-10, iters 20), its sweeps CUDA
+          graphs: the kernels' launch counters are zeroed just before the
+          first (cold) run and read just after it; then best of 3 walls,
+          each solve timing its own factor phase; every inside Ritz pair's
+          residual recomputed on the host in float64; the plain loop
+          (`_feast_compiled_plain`) once, its K1 and K2 launches and
+          iterations equal to the graphs'
+  compiled_graph  the graphs against the plain loop on main's problem and on
+          a B pencil (I + a Hermitian perturbation) at the same n: cold
+          wall, capture and instantiation seconds, then 3 warm solves of
+          each in turns; graph replays per solve; one warm graph solve under
+          torch.profiler (launch calls, device idle share, top kernels),
+          held on main's problem to the profile phase's trace of the plain
+          loop, and the cost of the host's status read a sweep; the same
+          iterations, sweeps per tier and inside count, eigenvalues within
+          1e-12 relative, host residuals below 1e-10, equal K1 and K2
+          launches, peak memory and the cached program's, and the graphs'
+          launch calls at most 5% of the plain loop's
+  profile the plain loop with per driver phase host walls (each phase
+          synchronized), then once under torch.profiler (device idle share,
+          launch calls, top kernels)
   sparse  feast_iterative on the 1M-dof generalized grid pencil (K = T (+) T
           5-point stiffness, B = M (x) M 9-point mass, N = 1000, lowest slice,
           m0 = 8, 8 nodes, AMG on strength aggregates with a complex64 V-cycle,
@@ -148,7 +161,8 @@ import time
 
 import numpy as np
 
-PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "dense_variants",
+PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "compiled_graph",
+          "dense_variants",
           "panel_backend", "sparse", "sparse_profile", "fastdiag", "unstructured", "orchestrate",
           "parallel", "nonlinear", "nonlinear_small")
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -796,13 +810,19 @@ def phase_main(torch, ft, dev, refs, reps=3):
     kw = dict(c=c, r=r, nodes=16, iters=20, tol=1e-10, mixed_prec=True, device=dev)
     torch.cuda.synchronize()
 
-    panel_lu.launches = 0
-    schur_kernel.launches = 0
+    def counted(fn):
+        panel_lu.launches = 0
+        schur_kernel.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"panel_lu": panel_lu.launches, "schur": schur_kernel.launches}
+
     t0 = time.perf_counter()
-    res = ft.feast_compiled(At, Xt, **kw)
-    torch.cuda.synchronize()
+    res, launches = counted(lambda: ft.feast_compiled(At, Xt, **kw))
     warm = time.perf_counter() - t0
-    launches = {"panel_lu": panel_lu.launches, "schur": schur_kernel.launches}
+    require(len(fmod._PROGRAMS) == 1, "main: feast_compiled did not run its sweeps as graphs")
+    prog = next(iter(fmod._PROGRAMS.values()))
+    require(prog.graphs and prog.replays > 0, "main: no graph replayed")
 
     # each timed solve also times its own factor phase (node matrices, panel
     # LU, diagonal inverses), synchronized at its end
@@ -829,6 +849,8 @@ def phase_main(torch, ft, dev, refs, reps=3):
     require(len(factors) == reps, f"main: {len(factors)} factor phases in {reps} solves")
     i_best = int(np.argmin(walls))
     best, factor_s = walls[i_best], factors[i_best]
+    # the plain loop on the same inputs: the kernels' launches must agree
+    res_plain, launches_plain = counted(lambda: fmod._feast_compiled_plain(At, Xt, **kw))
 
     lam, rr = host_residuals(A, res)
     require(res.converged, "main: not converged")
@@ -837,6 +859,9 @@ def phase_main(torch, ft, dev, refs, reps=3):
             f"main: host residual {rr.max()}")
     require(launches["panel_lu"] > 0 and launches["schur"] > 0,
             f"main: kernel launches {launches}")
+    require(launches == launches_plain and res.n_iter == res_plain.n_iter,
+            f"main: launches {launches} in {res.n_iter} iterations, the plain loop "
+            f"{launches_plain} in {res_plain.n_iter}")
     emit({"phase": "main", "n": 4096, "m0": 48, "nodes": 16, "tol": 1e-10,
           "inside": int(len(lam)), "iterations": res.n_iter,
           "max_residual_host_f64": float(rr.max()), "warmup_wall_s": warm,
@@ -844,10 +869,215 @@ def phase_main(torch, ft, dev, refs, reps=3):
           "factor_s": factor_s,
           "sweeps_s": best - factor_s,
           "per_sweep_s": (best - factor_s) / max(res.n_iter, 1),
-          "launches_per_solve": launches,
+          "launches_per_solve": launches, "launches_plain_loop": launches_plain,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
     refs["main"] = {"lam": lam[np.argsort(lam.real)], "n_iter": res.n_iter}
     return launches, int(len(lam))
+
+
+def pencil_B(n=4096, seed=1):
+    """A Hermitian positive definite B near the identity for the B pencil:
+    I + 0.02 (G + G^H) / (2 sqrt(n)), G complex Gaussian."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    return np.eye(n, dtype=np.complex128) + 0.01 * (G + G.conj().T) / np.sqrt(n)
+
+
+def pencil_residuals(A, B, res):
+    """Host float64 residual ||A x - lam B x|| of each inside Ritz pair."""
+    lam, X, _ = res.filtered()
+    BX = X if B is None else B @ X
+    return lam, np.linalg.norm(A @ X - BX * lam[None, :], axis=0)
+
+
+def read_cost_ms(torch, prog, sweeps, reps=2):
+    """What the host's one status read a sweep costs: the complex128 tier's
+    two graphs replayed `sweeps` times with the read between them (copy to
+    pinned memory, stream sync) and without it (one sync at the end), best
+    of reps each, in turns; ms per sweep.  The replays run past the solve's
+    end on the program's buffers, which the next solve loads anew."""
+    def sweep_loop(read):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(sweeps):
+            out = prog._step("fine_rr")
+            if read:
+                prog._read(out["status"])
+            prog._step("fine_update")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = {True: [], False: []}
+    for _ in range(reps):
+        for read in (True, False):
+            walls[read].append(sweep_loop(read))
+    return (min(walls[True]) - min(walls[False])) / sweeps * 1e3
+
+
+def phase_compiled_graph(torch, ft, dev, smi, refs, reps=3):
+    """feast_compiled's sweeps as CUDA graphs against the plain loop
+    (`_feast_compiled_plain`) on the main problem and on a B pencil at the
+    same n: a cold graph solve (capture and instantiation timed; its eager
+    sweeps warm the plain loop's ops too), reps solves of each in turns, a
+    warm graph solve under torch.profiler and the memory the cached
+    program holds; on the main problem also the cost of the host's status
+    read a sweep (`read_cost_ms`) and the plain loop's trace, the profile
+    phase's where it ran (`refs["plain_trace"]`).  The two must run the same iterations and
+    inside count, agree to 1e-12 relative and launch K1 and K2 as often;
+    on the main problem the graphs' warm solve makes at most 5% of the
+    plain loop's launch calls, and each tier runs as many sweeps in both."""
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    A, X0, c, r = bench_problem()
+    At, Xt = torch.as_tensor(A, device=dev), torch.as_tensor(X0, device=dev)
+    kw = dict(c=c, r=r, nodes=16, iters=20, tol=1e-10, mixed_prec=True, device=dev)
+    Bh = pencil_B()
+    out = {"phase": "compiled_graph", "card": smi}
+    rr_calls = []
+    rayleigh_ritz = fmod._rayleigh_ritz
+
+    def counted_rr(Q, *a, **k):
+        rr_calls.append(Q.dtype)
+        return rayleigh_ritz(Q, *a, **k)
+
+    fmod._rayleigh_ritz = counted_rr
+    try:
+        phase_compiled_graph_cases(torch, ft, fmod, dev, At, Xt, A, Bh, kw, out,
+                                   rr_calls, refs, reps)
+    finally:
+        fmod._rayleigh_ritz = rayleigh_ritz
+    emit(out)
+
+
+def phase_compiled_graph_cases(torch, ft, fmod, dev, At, Xt, A, Bh, kw, out, rr_calls,
+                               refs, reps):
+    panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
+    schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
+    for label, B in (("headline", None), ("B_pencil", Bh)):
+        headline = B is None
+        Bt = None if B is None else torch.as_tensor(B, device=dev)
+
+        def graph():
+            return ft.feast_compiled(At, Xt, B=Bt, **kw)
+
+        def plain():
+            return fmod._feast_compiled_plain(At, Xt, B=Bt, **kw)
+
+        def run(fn):
+            panel_lu.launches = 0
+            schur_kernel.launches = 0
+            rr_calls.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            info = {"wall_s": time.perf_counter() - t0,
+                    "k1": panel_lu.launches, "k2": schur_kernel.launches,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+            # each tier's sweeps: the graphs' program, or the plain loop's
+            # Rayleigh-Ritz calls by dtype
+            info["sweeps"] = (list(next(iter(fmod._PROGRAMS.values())).sweeps)
+                              if fn is graph else [rr_calls.count(torch.complex64),
+                                                   rr_calls.count(torch.complex128)])
+            return res, info
+
+        steps_s = {}
+        t_step = time.perf_counter()
+
+        def lap(name):
+            nonlocal t_step
+            now = time.perf_counter()
+            steps_s[name] = now - t_step
+            t_step = now
+
+        fmod.clear_graph_cache()
+        torch.cuda.empty_cache()
+        res_g, cold = run(graph)
+        prog = next(iter(fmod._PROGRAMS.values()))
+        cold.update(capture_s=prog.capture_s, instantiate_s=prog.instantiate_s,
+                    replays=prog.replays)
+        lap("cold")
+        if headline and "plain_trace" not in refs:    # the profile phase's, else here
+            refs["plain_trace"] = traced(torch, plain, cpu=False)
+            lap("plain_traced")
+        tp = refs["plain_trace"] if headline else None
+        walls = {"graph": [], "plain": []}
+        for i in range(reps):                  # in turns: plain, graph, graph, plain, ...
+            order = (("plain", plain), ("graph", graph))
+            for route, fn in (order if i % 2 == 0 else order[::-1]):
+                before = prog.replays
+                res, info = run(fn)
+                walls[route].append(info["wall_s"])
+                if route == "graph":
+                    warm_graph = dict(info, replays=prog.replays - before)
+                    res_g = res
+                else:
+                    warm_plain = info
+                    res_p = res
+        lap("reps")
+        tg = traced(torch, graph, cpu=False)
+        lap("graph_traced")
+        if headline:
+            read_ms = read_cost_ms(torch, prog, res_g.n_iter)
+            lap("read_cost")
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        fmod.clear_graph_cache()
+        del prog
+        torch.cuda.empty_cache()
+        held = [(a - b) / 1e9 for a, b in zip(held, (torch.cuda.memory_allocated(dev),
+                                                      torch.cuda.memory_reserved(dev)))]
+
+        lam_g, rr_g = pencil_residuals(A, B, res_g)
+        lam_p, rr_p = pencil_residuals(A, B, res_p)
+        lam_g, lam_p = lam_g[np.argsort(lam_g.real)], lam_p[np.argsort(lam_p.real)]
+        same_count = len(lam_g) == len(lam_p)
+        diff = float(np.max(np.abs(lam_g - lam_p) / np.abs(lam_p))) if same_count else np.inf
+        row = {"inside": len(lam_g), "inside_plain": len(lam_p),
+               "n_iter": res_g.n_iter, "n_iter_plain": res_p.n_iter,
+               "max_relerr_vs_plain": diff,
+               "bit_equal": bool(same_count and np.array_equal(lam_g, lam_p)),
+               "max_residual_host_f64": float(rr_g.max()),
+               "max_residual_plain_host_f64": float(rr_p.max()),
+               "cold": cold, "warm_graph": warm_graph, "warm_plain": warm_plain,
+               "graph_walls_s": walls["graph"], "plain_walls_s": walls["plain"],
+               "graph_best_s": min(walls["graph"]), "plain_best_s": min(walls["plain"]),
+               "graph_launch_calls": tg["launch_calls"], "graph_launches": tg["graph_launches"],
+               "graph_device_idle_share": tg["device_idle_share"],
+               "graph_kernel_count": tg["kernel_count"],
+               "graph_profiled_wall_s": tg["wall_s"],
+               "graph_top_kernels_ms": top_kernels(tg, k=8),
+               "cache_allocated_gb": held[0], "cache_reserved_gb": held[1],
+               "steps_s": steps_s}
+        if headline:
+            row.update(plain_launch_calls=tp["launch_calls"],
+                       plain_device_idle_share=tp["device_idle_share"],
+                       plain_kernel_count=tp["kernel_count"],
+                       plain_profiled_wall_s=tp["wall_s"],
+                       status_read_ms_per_sweep=read_ms)
+        out[label] = row
+        what = f"compiled_graph {label}"
+        require(res_g.converged and res_p.converged, f"{what}: not converged")
+        require(res_g.n_iter == res_p.n_iter and same_count,
+                f"{what}: {res_g.n_iter} iterations and {len(lam_g)} inside, the plain "
+                f"loop {res_p.n_iter} and {len(lam_p)}")
+        require(diff <= 1e-12, f"{what}: eigenvalues {diff} relative from the plain loop")
+        require(rr_g.max() < 1e-10 and rr_p.max() < 1e-10,
+                f"{what}: host residuals {rr_g.max()}, plain {rr_p.max()}")
+        for info in (cold, warm_graph):
+            require(info["k1"] == warm_plain["k1"] and info["k2"] == warm_plain["k2"],
+                    f"{what}: K1 {info['k1']}, K2 {info['k2']} launches, the plain loop "
+                    f"{warm_plain['k1']}, {warm_plain['k2']}")
+        require(warm_graph["replays"] > 0, f"{what}: no graph replayed")
+        if headline:
+            require(tg["launch_calls"] <= 0.05 * tp["launch_calls"],
+                    f"{what}: {tg['launch_calls']} launch calls, the plain loop "
+                    f"{tp['launch_calls']}")
+        require(cold["sweeps"] == warm_graph["sweeps"] == warm_plain["sweeps"],
+                f"{what}: sweeps per tier {cold['sweeps']}, {warm_graph['sweeps']}, the "
+                f"plain loop {warm_plain['sweeps']}")
+        del Bt, res_g, res_p, res
+    fmod.clear_graph_cache()
 
 
 def lu_backward_error(torch, A, LU, perm, count):
@@ -972,33 +1202,42 @@ def phase_panel_backend(torch, ft, dev, refs, smi, reps=3):
           "k1_launches": launches})
 
 
-def traced(torch, fn):
+def traced(torch, fn, cpu=True):
     """fn() once under torch.profiler, summed from the raw trace events
     (building the profiler's per-event objects with key_averages() takes
     minutes for the 1e5-1e6 events of one solve): wall, device busy time
-    and idle share, kernel launch calls, kernels run, and [name, count, ms]
-    per kernel name, most device time first."""
+    and idle share, cudaLaunchKernel calls, every launch call of the
+    runtime and driver (kernels, K1's cudaLaunchKernelEx, graph launches)
+    and the graph launches among them, kernels run, and [name, count, ms]
+    per kernel name, most device time first.  cpu=False leaves out the
+    host operators' events (the launch calls stay: they are the CUDA
+    runtime's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name, launches = {}, 0
+    by_name, launches, calls, graphs = {}, 0, 0, 0
     for e in prof.profiler.kineto_results.events():
+        name = e.name()
         if e.device_type() == DeviceType.CUDA:
-            cnt, ns = by_name.get(e.name(), (0, 0))
-            by_name[e.name()] = (cnt + 1, ns + e.duration_ns())
-        elif e.name() == "cudaLaunchKernel":
-            launches += 1
+            cnt, ns = by_name.get(name, (0, 0))
+            by_name[name] = (cnt + 1, ns + e.duration_ns())
+        elif name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch")):
+            calls += 1
+            launches += name == "cudaLaunchKernel"
+            graphs += name == "cudaGraphLaunch"
     busy = sum(ns for _, ns in by_name.values()) / 1e9
     ranked = sorted(([k, c, ns / 1e6] for k, (c, ns) in by_name.items()),
                     key=lambda row: row[2], reverse=True)
     return {"wall_s": wall, "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
-            "cuda_launch_calls": launches, "kernel_count": sum(c for c, _ in by_name.values()),
+            "cuda_launch_calls": launches, "launch_calls": calls, "graph_launches": graphs,
+            "kernel_count": sum(c for c, _ in by_name.values()),
             "kernels": ranked}
 
 
@@ -1006,12 +1245,13 @@ def top_kernels(tr, k=12, width=70):
     return [[name[:width], cnt, ms] for name, cnt, ms in tr["kernels"][:k]]
 
 
-def phase_profile(torch, ft, dev):
-    """Two more main-path solves: one with each driver phase wrapped in a
+def phase_profile(torch, ft, dev, refs):
+    """Two more main-path solves through the plain loop
+    (`_feast_compiled_plain`): one with each driver phase wrapped in a
     synchronized host timer (factor, orthonormalization, Rayleigh-Ritz and
-    its small eig, node update), one under torch.profiler for the device
-    busy share, the kernel launch calls and the kernels with the most
-    device time."""
+    its small eig, node update; the graphs' steps have no host boundaries
+    to time), one under torch.profiler (device idle share, launch calls,
+    top kernels), which `compiled_graph` holds the graphs' trace to."""
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
     A, X0, c, r = bench_problem()
     At, Xt = torch.as_tensor(A, device=dev), torch.as_tensor(X0, device=dev)
@@ -1034,25 +1274,24 @@ def phase_profile(torch, ft, dev):
             return out
         return run
 
-    ft.feast_compiled(At, Xt, **kw)            # warm: library handles, caches
     for (m, name), fn in zip(wrapped, saved):
         setattr(m, name, timer(fn, name))
     try:
         t0 = time.perf_counter()
-        ft.feast_compiled(At, Xt, **kw)
+        fmod._feast_compiled_plain(At, Xt, **kw)
         torch.cuda.synchronize()
         wall_timed = time.perf_counter() - t0
     finally:
         for (m, name), fn in zip(wrapped, saved):
             setattr(m, name, fn)
-
-    tr = traced(torch, lambda: ft.feast_compiled(At, Xt, **kw))
-    emit({"phase": "profile", "timed_wall_s": wall_timed,
+    tr = traced(torch, lambda: fmod._feast_compiled_plain(At, Xt, **kw), cpu=False)
+    refs["plain_trace"] = tr
+    emit({"phase": "profile", "route": "_feast_compiled_plain", "timed_wall_s": wall_timed,
           "phase_wall_s": {k: {"s": v[0], "calls": v[1]} for k, v in phases.items()},
           "profiled_wall_s": tr["wall_s"], "device_busy_s": tr["device_busy_s"],
           "device_idle_share": tr["device_idle_share"],
-          "cuda_launch_calls": tr["cuda_launch_calls"], "kernel_count": tr["kernel_count"],
-          "top_kernels_ms": top_kernels(tr)})
+          "cuda_launch_calls": tr["cuda_launch_calls"], "launch_calls": tr["launch_calls"],
+          "kernel_count": tr["kernel_count"], "top_kernels_ms": top_kernels(tr)})
 
 
 # ---------------------------------------------------------------------------
@@ -2083,7 +2322,8 @@ def main(argv=None):
     if "main" in phases:
         torch.cuda.reset_peak_memory_stats(dev)
         launches, inside_main = run("main", phase_main, torch, ft, dev, refs)
-    run("profile", phase_profile, torch, ft, dev)
+    run("profile", phase_profile, torch, ft, dev, refs)
+    run("compiled_graph", phase_compiled_graph, torch, ft, dev, smi, refs)
     run("dense_variants", phase_dense_variants, torch, ft, dev, refs)
     run("panel_backend", phase_panel_backend, torch, ft, dev, refs, smi)
     problem = None

@@ -16,6 +16,12 @@ compiled; the toolkit is found through `CUDA_HOME` (default
 all of them; `function()` returns a ctypes function with its argument
 types set.  Every C entry point returns `cudaGetLastError()` (an int) and
 `check()` raises when it is not 0.
+
+Each wrapper counts its launches in its module's `launches` through
+`count_launch`.  A wrapper called while a CUDA graph is captured launches
+nothing: inside `tally_launches` its launch goes into the graph's tally,
+and the graph adds the tally to the counters on every replay
+(`add_launches`).
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ import ctypes
 import hashlib
 import os
 import shutil
+import contextlib
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -41,6 +49,8 @@ SOURCE_FLAGS = {"panel_lu": ("--fmad=false",), "schur": (), "cmatmul": (),
 
 _libs: dict[str, ctypes.CDLL] = {}
 _funcs: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+# launch tallies of the CUDA graphs being captured, innermost last
+_tallies: list[dict[str, int]] = []
 
 
 def nvcc() -> str:
@@ -118,3 +128,31 @@ def check(err: int, what: str):
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def count_launch(module: str):
+    """One launch of the kernel of wrapper module `module` (its __name__):
+    into the tally of the graph being captured, else into the module's
+    `launches`."""
+    if _tallies:
+        _tallies[-1][module] = _tallies[-1].get(module, 0) + 1
+    else:
+        sys.modules[module].launches += 1
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Around the capture of a CUDA graph: yields the dict {module: launches}
+    of the kernels the graph holds."""
+    tally: dict[str, int] = {}
+    _tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.pop()
+
+
+def add_launches(tally: dict[str, int]):
+    """Count one replay of a graph whose capture gave `tally`."""
+    for module, count in tally.items():
+        sys.modules[module].launches += count

@@ -21,7 +21,8 @@ import torch
 from .. import cx
 from ..kernels import _build
 
-# Launches of the CUDA kernel (plain-version calls do not count).
+# Launches of the CUDA kernel (plain-version calls do not count; a graph's
+# replays count the launches it holds, `_build.count_launch`).
 launches = 0
 # the tensor-core instruction of csrc/cmatmul.cu
 MMA = "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32"
@@ -41,7 +42,6 @@ def _rows(t: torch.Tensor, batch) -> torch.Tensor:
 def cmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b for complex64 (..., M, K) and (..., K, N) with broadcasting
     batch dims.  CUDA tensors run the kernel; CPU tensors the plain version."""
-    global launches
     if a.dim() < 2 or b.dim() < 2 or a.shape[-1] != b.shape[-2]:
         raise ValueError(f"cmatmul: shapes {tuple(a.shape)} and {tuple(b.shape)}")
     if not a.is_cuda:
@@ -61,5 +61,5 @@ def cmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                  a3.stride(1), b3.stride(1), N, a3.stride(0), b3.stride(0),
                  M * N, torch.cuda.current_stream(a.device).cuda_stream)
         _build.check(err, "cmatmul kernel")
-        launches += 1
+        _build.count_launch(__name__)
     return c.reshape(batch + (M, N))

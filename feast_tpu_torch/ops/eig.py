@@ -274,13 +274,19 @@ def eig_mixed(A: torch.Tensor, ii_steps: int = 2):
     return _ii_polish(A, lam0, V, ii_steps)
 
 
-def _indep_ok(V: torch.Tensor, floor: float = 1e-4) -> bool:
-    """Column-independence guard of the mixed eig: the pivots of the
-    Cholesky factor of V^H V (unit columns) bound sigma_min(V) from above."""
+def _indep_flag(V: torch.Tensor, floor: float = 1e-4) -> torch.Tensor:
+    """Column-independence guard of the mixed eig, as a 0-d bool tensor: the
+    pivots of the Cholesky factor of V^H V (unit columns) bound
+    sigma_min(V) from above, and a pivot at or below `floor` rejects V."""
     from . import qr as qrmod
 
     d = _diag(qrmod.cholesky(cx.cgram(V))).real
-    return bool(torch.isfinite(d).all() and torch.min(d) > floor)
+    return torch.isfinite(d).all() & (torch.min(d) > floor)
+
+
+def _indep_ok(V: torch.Tensor, floor: float = 1e-4) -> bool:
+    """`_indep_flag` read on the host."""
+    return bool(_indep_flag(V, floor))
 
 
 _EIG_MODE = "mixed"
@@ -298,9 +304,14 @@ def set_eig_mode(name: str):
 
 
 def _mixed_gate(A: torch.Tensor) -> bool:
-    n = A.shape[-1]
-    return (_EIG_MODE == "mixed" and A.dtype == torch.complex128
-            and 2 <= n <= 128 and A.is_cuda)
+    return _mixed_route(A.dtype, A.shape[-1], A.device)
+
+
+def _mixed_route(dtype: torch.dtype, n: int, device: torch.device) -> bool:
+    """Whether `eig` / `gen_eig` of an (n, n) matrix of this dtype on this
+    device take the guarded mixed path."""
+    return (_EIG_MODE == "mixed" and dtype == torch.complex128
+            and 2 <= n <= 128 and device.type == "cuda")
 
 
 def _eig_full(A: torch.Tensor, refine_rq: bool = True):
@@ -312,18 +323,29 @@ def _eig_full(A: torch.Tensor, refine_rq: bool = True):
     return w, cx.normalize_cols(V)
 
 
+def _eig_flagged(A: torch.Tensor):
+    """The mixed path of `eig` with its acceptance decided on the device:
+    (lam, V, ok), ok a 0-d bool tensor that holds where every residual
+    column is within 1e-12 max(||A||_F, 1) sqrt(n) and V passes
+    `_indep_flag` (feast_tpu/ops/eig.py:498-505).  Where ok is false the
+    caller takes `_eig_full`, as `eig` does.  Nothing is read on the host
+    but what the complex64 Schur seed reads (on the card: one K2 launch)."""
+    n = A.shape[-1]
+    lam, V = eig_mixed(A, ii_steps=3)
+    R = A @ V - cx.scale_cols(V, lam)
+    scale = torch.clamp(cx.fro_norm(A), min=1.0)
+    ok = torch.max(cx.col_norms(R)) <= 1e-12 * scale * math.sqrt(n)
+    return lam, V, ok & _indep_flag(V)
+
+
 def eig(A: torch.Tensor, refine_rq: bool = True):
     """Eigenvalues and unit right eigenvectors (w (n,), V (n, n)) of A.
 
     refine_rq polishes each value with a guarded two-sided Rayleigh
     quotient (left vectors from the unit-triangular Y inverse)."""
-    n = A.shape[-1]
     if _mixed_gate(A):
-        lam_m, V_m = eig_mixed(A, ii_steps=3)
-        R = A @ V_m - cx.scale_cols(V_m, lam_m)
-        scale = torch.clamp(cx.fro_norm(A), min=1.0)
-        ok = bool(torch.max(cx.col_norms(R)) <= 1e-12 * scale * math.sqrt(n))
-        if ok and _indep_ok(V_m):
+        lam_m, V_m, ok = _eig_flagged(A)
+        if bool(ok):
             return lam_m, V_m
     return _eig_full(A, refine_rq)
 
@@ -343,17 +365,26 @@ def _rq_refine_pencil(A, B, w, V, U, kappa_max: float = 1e4):
     return torch.where(safe & (kappa < kappa_max), w_rq, w)
 
 
+def _gen_eig_flagged(A: torch.Tensor, B: torch.Tensor):
+    """The mixed path of `gen_eig` with its acceptance decided on the
+    device: (lam, V, ok), ok a 0-d bool tensor: every residual column
+    within 1e-12 max(||A||_F + max|lam| ||B||_F, 1) sqrt(n), and V passing
+    `_indep_flag`.  Where ok is false the caller takes `_gen_eig_full`."""
+    n = A.shape[-1]
+    lam, V = _gen_eig_mixed(A, B)
+    R = A @ V - cx.scale_cols(B @ V, lam)
+    scale = torch.clamp(cx.fro_norm(A) + torch.max(cx.cabs(lam)) * cx.fro_norm(B),
+                        min=1.0)
+    ok = torch.max(cx.col_norms(R)) <= 1e-12 * scale * math.sqrt(n)
+    return lam, V, ok & _indep_flag(V)
+
+
 def gen_eig(A: torch.Tensor, B: torch.Tensor, refine_rq: bool = True):
     """A x = lam B x for small dense pairs with B invertible, by the
     reduction B^{-1} A; returns (w, V) with A V ~= B V diag(w)."""
-    n = A.shape[-1]
     if _mixed_gate(A):
-        lam_m, V_m = _gen_eig_mixed(A, B)
-        R = A @ V_m - cx.scale_cols(B @ V_m, lam_m)
-        scale = torch.clamp(cx.fro_norm(A) + torch.max(cx.cabs(lam_m))
-                            * cx.fro_norm(B), min=1.0)
-        ok = bool(torch.max(cx.col_norms(R)) <= 1e-12 * scale * math.sqrt(n))
-        if ok and _indep_ok(V_m):
+        lam_m, V_m, ok = _gen_eig_flagged(A, B)
+        if bool(ok):
             return lam_m, V_m
     return _gen_eig_full(A, B, refine_rq)
 

@@ -30,7 +30,8 @@ from .. import cx
 from ..kernels import _build
 from .lu import _swap_rows
 
-# Launches of the CUDA kernel (plain-version calls do not count).
+# Launches of the CUDA kernel (plain-version calls do not count; a graph's
+# replays count the launches it holds, `_build.count_launch`).
 launches = 0
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
@@ -104,7 +105,6 @@ def panel_factor(slab: torch.Tensor, j0: int):
     `slab` may be a column slice of a larger matrix (unit stride in the
     last dim).  A CUDA tensor runs the kernel; a CPU tensor runs the plain
     version."""
-    global launches
     _check_slab(slab, j0)
     if not slab.is_cuda:
         return panel_factor_plain(slab, j0)
@@ -119,7 +119,7 @@ def panel_factor(slab: torch.Tensor, j0: int):
              perm.data_ptr(), invL.data_ptr(),
              torch.cuda.current_stream(slab.device).cuda_stream)
     _build.check(err, "panel_lu kernel")
-    launches += 1
+    _build.count_launch(__name__)
     return slab, perm, invL
 
 

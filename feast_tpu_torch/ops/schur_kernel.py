@@ -20,7 +20,8 @@ import torch
 
 from ..kernels import _build
 
-# Launches of the CUDA kernel (plain-version calls do not count).
+# Launches of the CUDA kernel (plain-version calls do not count; a graph's
+# replays count the launches it holds, `_build.count_launch`).
 launches = 0
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
@@ -34,7 +35,6 @@ def schur(A: torch.Tensor, want_y: bool = False, max_sweeps_per_eig: int = 30,
     of (sweeps, sum of active-window sizes) per matrix.
 
     A CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
-    global launches
     n = A.shape[-1]
     if A.shape[-2] != n or not 2 <= n <= MAX_N:
         raise ValueError(f"schur kernel takes (..., n, n) with 2 <= n <= {MAX_N}, "
@@ -54,7 +54,7 @@ def schur(A: torch.Tensor, want_y: bool = False, max_sweeps_per_eig: int = 30,
              max_sweeps_per_eig, int(want_y),
              torch.cuda.current_stream(A.device).cuda_stream)
     _build.check(err, "schur kernel")
-    launches += 1
+    _build.count_launch(__name__)
     out = tuple(o.reshape(batch + (n, n)) for o in outs)
     return out + (stats.reshape(batch + (2,)),) if return_stats else out
 

@@ -1,5 +1,5 @@
-from .feast import (DualFeastResult, FeastResult, dual_gen_feast, feast,
-                    feast_compiled, gen_feast)
+from .feast import (DualFeastResult, FeastResult, clear_graph_cache,
+                    dual_gen_feast, feast, feast_compiled, gen_feast)
 from .ifeast import feast_iterative, ifeast
 from .nlfeast import (NlfeastResult, beyn_qr_extract, beyn_rr2_extract,
                       beyn_rr_extract, beyn_svd_extract, nlfeast, nlfeast_it,

@@ -14,6 +14,11 @@ mixed_prec the node matrices are factored in complex64 (the panel kernel
 on the card) and each solve is refined by 2 steps of complex128 iterative
 refinement, each residual one wide matmul over all nodes.
 
+`feast_compiled` is the JAX package's single-program loop: on the card its
+sweeps are CUDA graphs, captured once per signature and replayed, with the
+stop rules and the eig guard decided on the device (`_SweepProgram`); the
+CPU and the options `_graph_scope` names run the plain loop.
+
 `pencil="hermitian"` (and `hermitian=True`) reduces through the complex
 `torch.linalg.eigh` (`ops/eigh.py`); `rr="host"` solves the m0 x m0
 reduced problem with LAPACK on the host (the code `feast_iterative`'s host
@@ -41,6 +46,9 @@ card), so every rank returns the same result.  X0 is broadcast from rank
 
 from __future__ import annotations
 
+import inspect
+import math
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -53,6 +61,7 @@ from ..ops import eig as eigmod
 from ..ops import eigh as eighmod
 from ..ops import lu as lumod
 from ..ops import qr as qrmod
+from ..kernels import _build
 
 
 class FeastResult(NamedTuple):
@@ -559,6 +568,12 @@ def _debug_print(nit, res, inside, spurious_tol=1e-5):
         print(f"{nit}: 0 inside")
 
 
+
+
+# ---------------------------------------------------------------------------
+# feast_compiled: the JAX package's single-program loop
+# ---------------------------------------------------------------------------
+
 def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
                    c: complex = 0.0 + 0.0j, r: float = 1.0, nodes: int = 8,
                    iters: int = 10, tol: float = 1e-12,
@@ -575,25 +590,127 @@ def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
     (orthonormalization, Rayleigh-Ritz, plain complex64 solves, no
     refinement) runs while its worst inside residual at least halves per
     sweep and stays above 2 eps32 ||A||_F / sqrt(n); its subspace then
-    seeds the complex128 loop, which alone sets the final accuracy."""
+    seeds the complex128 loop, which alone sets the final accuracy.
+
+    On the card the loop is the JAX package's one compiled program: each
+    tier's sweep is two steps, the Rayleigh-Ritz step with the tier's stop
+    flag and the eig guard (`_rr_step`) and the node update, each captured
+    once as a CUDA graph and replayed (`_SweepProgram`).  The host reads one
+    status tensor a sweep where JAX reads none; where the mixed eig's guard
+    fails it runs that sweep's Rayleigh-Ritz again with the full eig (JAX's
+    lax.cond), and it replays no update for the sweep that stops.  The
+    graphs are cached for the newest signature only (`_program_key`).
+    Options whose sweep reads the host take the plain loop instead, by the
+    rule of `_graph_scope` (the CPU, mesh=, pencils "qz" and "hermitian",
+    an m0 outside 2..128, eig mode "full", Schur backend "torch"); a
+    failure inside a capture raises."""
+    return _compiled("auto", A, X0, contour, c=c, r=r, nodes=nodes, iters=iters,
+                     tol=tol, ortho=ortho, B=B, mesh=mesh, mixed_prec=mixed_prec,
+                     pencil=pencil, hermitian=hermitian, node_scan=node_scan,
+                     two_tier=two_tier, tol_mode=tol_mode, device=device)
+
+
+def _feast_compiled_plain(*args, **kw) -> FeastResult:
+    """`feast_compiled` through the plain loop on any device: every op an
+    eager launch, the host reading each sweep's residuals.  The CPU and the
+    options outside `_graph_scope` run it; `chip_smoke.py` holds the graphs
+    to it."""
+    return _compiled("plain", **_bind(args, kw))
+
+
+def _feast_compiled_steps(*args, **kw) -> FeastResult:
+    """`feast_compiled` through the sweep program run eagerly on any device:
+    the steps, static buffers and cache of the graphed path, without
+    graphs (pencil "lu", no mesh)."""
+    return _compiled("steps", **_bind(args, kw))
+
+
+def _bind(args, kw) -> dict:
+    bound = inspect.signature(feast_compiled).bind(*args, **kw)
+    bound.apply_defaults()
+    return bound.arguments
+
+
+def _graph_scope(device: torch.device, m0: int, pencil: str, mesh) -> Optional[str]:
+    """None where `feast_compiled` captures its sweeps as CUDA graphs, else
+    why it runs the plain loop.  This rule decides, never a caught capture
+    error:
+      - off the card there is nothing to capture;
+      - mesh=: the node sum is a collective and the ranks agree on rank 0's
+        Rayleigh-Ritz;
+      - pencil "qz": ops/qz.py decides its deflations on the host;
+      - pencil "hermitian": torch.linalg.eigh checks its info on the host;
+      - m0 outside 2..128, eig mode "full" or Schur backend "torch": the
+        reduced eig is the plain Schur iteration, whose sweeps the host
+        counts."""
+    if device.type != "cuda":
+        return "the CPU runs the plain loop"
+    if mesh is not None:
+        return "mesh= runs the plain loop"
+    if pencil != "lu":
+        return f"pencil {pencil!r} reads the host in its reduced eig"
+    if eigmod._SCHUR_BACKEND != "cuda" or not eigmod._mixed_route(torch.complex128, m0,
+                                                                 device):
+        return (f"the reduced eig at m0={m0} (eig mode {eigmod._EIG_MODE!r}, Schur "
+                f"backend {eigmod._SCHUR_BACKEND!r}) is the plain Schur iteration")
+    return None
+
+
+def _compiled(route, A, X0, contour, *, c, r, nodes, iters, tol, ortho, B, mesh,
+              mixed_prec, pencil, hermitian, node_scan, two_tier, tol_mode,
+              device) -> FeastResult:
+    """route: "auto" (graphs where `_graph_scope` allows, else the plain
+    loop), "plain", or "steps" (the sweep program without graphs)."""
     if hermitian:
         pencil = "hermitian"
     A, B, Q, contour, z, w, node_sum = _prepare(A, B, X0, contour, c, r, nodes,
                                                 device, mesh)
     tol = _resolve_tol(tol, tol_mode, contour)
     mixed = bool(mixed_prec)
+    two_tier = mixed and (two_tier is None or bool(two_tier))
+    iters = int(iters)
+    if route == "auto":
+        route = "plain" if _graph_scope(Q.device, Q.shape[1], pencil, mesh) else "graphs"
+    elif route == "steps" and (pencil != "lu" or mesh is not None):
+        raise ValueError("the sweep program takes pencil 'lu' without mesh=")
     LUb, permb, dinvb = _factor_scan(A, B, z, mixed)
-    if two_tier is None:
-        two_tier = mixed
+    if route == "plain":
+        return _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour,
+                             iters, tol, ortho, mixed, two_tier, pencil)
+    graphs = route == "graphs"
+    key = _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs)
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        clear_graph_cache()
+        prog = _PROGRAMS[key] = _SweepProgram(
+            graphs, Q.device, kind=contour.kind, params=contour.params, tol=tol,
+            ortho=ortho, mixed=mixed, two_tier=two_tier,
+            mixed_eig=eigmod._mixed_route(torch.complex128, Q.shape[1], Q.device))
+    prog.load(A, B, Q, LUb, permb, dinvb, z, w)
+    del LUb, permb, dinvb
+    return prog.run(iters)
+
+
+def _coarse_floor(A32: torch.Tensor) -> torch.Tensor:
+    """2 eps32 ||A||_F / sqrt(n), float64 on A's device: the complex64
+    tier stops once its worst inside residual is at or below it."""
+    n = A32.shape[0]
+    return 2.0 * torch.finfo(torch.float32).eps * cx.fro_norm(A32).double() / math.sqrt(n)
+
+
+def _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour, iters, tol,
+                  ortho, mixed, two_tier, pencil) -> FeastResult:
+    """The loop of `_feast_compiled_plain`: each sweep's residuals read on
+    the host."""
     kind, params = contour.kind, contour.params
     n, m0 = Q.shape
     it = 0
-    if two_tier and mixed:
+    if two_tier:
         f32 = torch.complex64
         A32 = A.to(f32)
         B32 = None if B is None else B.to(f32)
         z32, w32 = z.to(f32), w.to(f32)
-        floor32 = 2.0 * torch.finfo(torch.float32).eps * float(cx.fro_norm(A32)) / np.sqrt(n)
+        floor32 = float(_coarse_floor(A32))
         Qc, prev, c_it, stop = Q.to(f32), np.inf, 0, False
         while not stop and c_it < iters:
             Qo = qrmod.orthonormalize(Qc, method=ortho)
@@ -628,3 +745,263 @@ def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
                                            solve_dtype, A, B, dinvb=dinvb))
         it += 1
     return FeastResult(lam, X, res, inside, it, done)
+
+
+# ---------------------------------------------------------------------------
+# the sweep program: pure steps on static buffers, captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _rr_step(Q, A, B, ortho: str, kind: str, params, mixed_eig: bool):
+    """A sweep's Rayleigh-Ritz, reading nothing on the host: orthonormalize,
+    the reduced matrices, their eig (with mixed_eig the flagged mixed form,
+    else `_reduced_eig`'s "lu" path with ok true), the Ritz pairs, the
+    inside mask and the worst inside residual.  Returns (Qo, Aq, Bq, lam,
+    X, R, res, inside, worst, ok)."""
+    Qo = qrmod.orthonormalize(Q, method=ortho)
+    Bq = None if B is None else cx.cgram(Qo, B @ Qo)
+    Aq = cx.cgram(Qo, A @ Qo)
+    if mixed_eig:
+        lam, Xq, ok = (eigmod._eig_flagged(Aq) if Bq is None
+                       else eigmod._gen_eig_flagged(Aq, Bq))
+    else:
+        lam, Xq = _reduced_eig(Aq, Bq, "lu")
+        ok = torch.ones((), dtype=torch.bool, device=Q.device)
+    lam, X, R, res = _ritz_pairs(Qo, A, B, lam, Xq)
+    inside = _in_mask(lam, kind, params)
+    worst = torch.max(torch.where(inside, res, 0.0))
+    return Qo, Aq, Bq, lam, X, R, res, inside, worst, ok
+
+
+def _coarse_stop(worst, inside, prev, it, floor32) -> torch.Tensor:
+    """The complex64 tier's stop flag on device tensors, JAX's three-way
+    rule (feast_tpu/solvers/feast.py:1037-1039): the worst inside residual
+    no longer halves, or is at the floor, or nothing is inside after two
+    sweeps.  prev (float64) is the last sweep's worst, `it` the sweep."""
+    worst = worst.double()
+    any_in = inside.any()
+    return (((it > 0) & (worst > 0.5 * prev)) | (any_in & (worst <= floor32))
+            | ((it > 1) & ~any_in))
+
+
+def _status(flag, ok) -> torch.Tensor:
+    """The (flag, ok) pair the host reads after a Rayleigh-Ritz step."""
+    return torch.stack([flag, ok]).to(torch.int32)
+
+
+def _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs):
+    """The signature a sweep program and its graphs are cached under, as
+    jax.jit caches per static argument and shape: every value the steps
+    bake in, and every backend switch that changes the captured ops."""
+    return (str(Q.device), Q.dtype, A.shape[0], Q.shape[1], z.shape[0], B is None,
+            contour.kind, tuple(contour.params), iters, tol, ortho, mixed, two_tier,
+            graphs, eigmod._SCHUR_BACKEND, eigmod._EIG_MODE, cx._GEMM_BACKEND,
+            lumod._PANEL_BACKEND)
+
+
+# the sweep program of the newest signature (`_program_key`)
+_PROGRAMS: dict = {}
+
+
+def clear_graph_cache():
+    """Drop the cached sweep program of `feast_compiled`: its buffers (on
+    the card a copy of the factor store), graphs and memory pool."""
+    if any(p.graphs for p in _PROGRAMS.values()):
+        torch.cuda.synchronize()
+    _PROGRAMS.clear()
+
+
+class _Step:
+    """One step of a sweep: its results in static buffers (`out`), and once
+    captured its graph and the kernel launches the graph holds.  It keeps
+    no reference to its program: a program in a reference cycle could be
+    collected, and its graphs destroyed, in the middle of another capture,
+    which that would invalidate."""
+
+    def __init__(self):
+        self.out = None
+        self.graph = None
+        self.tally = {}
+
+    def store(self, vals: dict):
+        if self.out is None:
+            self.out = {k: v.clone() for k, v in vals.items()}
+        else:
+            for k, v in vals.items():
+                self.out[k].copy_(v)
+
+
+class _SweepProgram:
+    """The sweeps of `feast_compiled` for one signature, on static buffers.
+
+    `load` copies a solve's inputs into the buffers the steps read (A, B
+    and their complex64 copies, the factor, the nodes and weights, the
+    start subspace, the complex64 tier's floor); `run` drives the tiers.  A
+    sweep is two steps: Rayleigh-Ritz with the stop flag, then the node
+    update, which writes the next subspace into the state buffer
+    (`_step`).  With `graphs`, each step is captured into the program's
+    private pool on its first call, timed in `capture_s` and
+    `instantiate_s`; `replays` counts the replays, and `sweeps` holds the
+    last run's sweeps in each tier (complex64, complex128)."""
+
+    def __init__(self, graphs: bool, device, *, kind, params, tol, ortho, mixed,
+                 two_tier, mixed_eig):
+        self.graphs = graphs
+        self.kind, self.params, self.tol, self.ortho = kind, params, tol, ortho
+        self.mixed, self.two_tier, self.mixed_eig = mixed, two_tier, mixed_eig
+        self.buf: dict = {}
+        self.steps: dict = {}
+        self.capture_s = self.instantiate_s = 0.0
+        self.replays = 0
+        self.sweeps = (0, 0)
+        if graphs:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device)
+            self.status = torch.empty(2, dtype=torch.int32, pin_memory=True)
+
+    def _put(self, name, t, dtype=None):
+        buf = self.buf.get(name)
+        if buf is None:
+            self.buf[name] = t.to(dtype) if dtype is not None else t.clone()
+        else:
+            buf.copy_(t)
+
+    def load(self, A, B, Q, LUb, permb, dinvb, z, w):
+        for name, t in (("A", A), ("B", B), ("Q", Q), ("LUb", LUb), ("permb", permb),
+                        ("invL", dinvb[0]), ("invU", dinvb[1]), ("z", z), ("w", w)):
+            if t is not None:
+                self._put(name, t)
+        if self.two_tier:
+            f32 = torch.complex64
+            for name, t in (("A32", A), ("B32", B), ("z32", z), ("w32", w)):
+                if t is not None:
+                    self._put(name, t, f32)
+            self._put("floor32", _coarse_floor(self.buf["A32"]))
+            if "prev" not in self.buf:
+                self.buf["prev"] = torch.empty((), dtype=torch.float64, device=A.device)
+                self.buf["c_it"] = torch.empty((), dtype=torch.int64, device=A.device)
+
+    def _step(self, name: str) -> dict:
+        """Run step `name` (method `_<name>`, a dict of tensors): eagerly, or
+        with graphs eagerly on its first call (that sweep's own work), then
+        captured once, then replayed with its launches counted."""
+        step = self.steps.setdefault(name, _Step())
+        if step.graph is not None:
+            step.graph.replay()
+            _build.add_launches(step.tally)
+            self.replays += 1
+            return step.out
+        fn = getattr(self, "_" + name)
+        step.store(fn())
+        if self.graphs:
+            step.graph, step.tally = self._capture(step, fn)
+        return step.out
+
+    def _capture(self, step: _Step, fn):
+        """Capture `fn` into a CUDA graph; returns (graph, launch tally)."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        # thread_local: another thread's synchronizing call (a process
+        # group's watchdog, say) does not invalidate this capture
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"), \
+                _build.tally_launches() as tally:
+            step.store(fn())
+        t1 = time.perf_counter()
+        graph.instantiate()
+        self.capture_s += t1 - t0
+        self.instantiate_s += time.perf_counter() - t1
+        return graph, tally
+
+    def _read(self, status: torch.Tensor):
+        """The host's one read a sweep: (flag, ok)."""
+        if not self.graphs:
+            return status.tolist()
+        self.status.copy_(status, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return self.status.tolist()
+
+    def _coarse_rr(self):
+        b = self.buf
+        Qo, _, _, lam, X, R, _, inside, worst, ok = _rr_step(
+            b["Qc"], b["A32"], b.get("B32"), self.ortho, self.kind, self.params, False)
+        stop = _coarse_stop(worst, inside, b["prev"], b["c_it"], b["floor32"])
+        b["prev"].copy_(worst)
+        b["c_it"].add_(1)
+        return {"Qo": Qo, "lam": lam, "X": X, "R": R, "status": _status(stop, ok)}
+
+    def _coarse_update(self):
+        b, o = self.buf, self.steps["coarse_rr"].out
+        b["Qc"].copy_(_node_update_scan(
+            b["LUb"], b["permb"], b["z32"], b["w32"], o["X"], o["R"], o["lam"], None,
+            b["A32"], b.get("B32"), refine=0, dinvb=(b["invL"], b["invU"])))
+        return {}
+
+    def _fine_rr(self):
+        b = self.buf
+        Qo, Aq, Bq, lam, X, R, res, inside, worst, ok = _rr_step(
+            b["Q"], b["A"], b.get("B"), self.ortho, self.kind, self.params,
+            self.mixed_eig)
+        done = inside.any() & (worst < self.tol)
+        out = {"Qo": Qo, "Aq": Aq, "lam": lam, "X": X, "R": R, "res": res,
+               "inside": inside, "status": _status(done, ok)}
+        if Bq is not None:
+            out["Bq"] = Bq
+        return out
+
+    def _fine_update(self):
+        b, o = self.buf, self.steps["fine_rr"].out
+        b["Q"].copy_(_node_update_scan(
+            b["LUb"], b["permb"], b["z"], b["w"], o["X"], o["R"], o["lam"],
+            torch.complex64 if self.mixed else None, b["A"], b.get("B"),
+            dinvb=(b["invL"], b["invU"])))
+        return {}
+
+    def _full_rr(self, o: dict) -> bool:
+        """The sweep's Rayleigh-Ritz again with the full eig, where the mixed
+        eig's guard failed (JAX's lax.cond); returns done."""
+        b = self.buf
+        if "Bq" in o:
+            lam, Xq = eigmod._gen_eig_full(o["Aq"], o["Bq"])
+        else:
+            lam, Xq = eigmod._eig_full(o["Aq"])
+        lam, X, R, res = _ritz_pairs(o["Qo"], b["A"], b.get("B"), lam, Xq)
+        inside = _in_mask(lam, self.kind, self.params)
+        for name, t in (("lam", lam), ("X", X), ("R", R), ("res", res), ("inside", inside)):
+            o[name].copy_(t)
+        worst = float(torch.max(torch.where(inside, res, 0.0)))
+        return bool(inside.any()) and worst < self.tol
+
+    def run(self, iters: int) -> FeastResult:
+        b = self.buf
+        it = c_it = 0
+        if self.two_tier:
+            self._put("Qc", b["Q"], torch.complex64)
+            b["prev"].fill_(math.inf)
+            b["c_it"].zero_()
+            c_it, stop, o = 0, False, None
+            while not stop and c_it < iters:
+                o = self._step("coarse_rr")
+                stop = bool(self._read(o["status"])[0])
+                if not stop:
+                    self._step("coarse_update")
+                c_it += 1
+            b["Q"].copy_(o["Qo"] if stop else b["Qc"])
+            it = max(c_it - 1, 0)  # the stopping sweep did no update
+        done, o, it0 = False, None, it
+        while not done and it <= iters:
+            o = self._step("fine_rr")
+            flag, ok = self._read(o["status"])
+            done = bool(flag) if ok else self._full_rr(o)
+            if not done and it < iters:  # the last allowed sweep's update is dead
+                self._step("fine_update")
+            it += 1
+        self.sweeps = (c_it, it - it0)
+        if o is None:
+            n, m0 = b["Q"].shape
+            dev = b["Q"].device
+            return FeastResult(torch.zeros(m0, dtype=b["Q"].dtype, device=dev),
+                               torch.zeros((n, m0), dtype=b["Q"].dtype, device=dev),
+                               torch.zeros(m0, dtype=torch.float64, device=dev),
+                               torch.zeros(m0, dtype=torch.bool, device=dev), it, done)
+        return FeastResult(o["lam"].clone(), o["X"].clone(), o["res"].clone(),
+                           o["inside"].clone(), it, done)

@@ -466,3 +466,120 @@ def test_nlfeast_mixed_on_card_matches_cpu(dev):
     lam_c, _, _ = ref.filtered(spurious=1e-5)
     assert out.converged and len(lam) == len(lam_c) == 12 and res.max() < 1e-10
     np.testing.assert_allclose(np.sort_complex(lam), np.sort_complex(lam_c), atol=1e-10)
+
+
+def _graph_problem(n=256, m0=16, seed=0):
+    rng = np.random.default_rng(seed)
+    A = np.diag(np.arange(1.0, n + 1.0)).astype(np.complex128)
+    A += 0.05 * (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+    X0 = rng.standard_normal((n, m0)) + 1j * rng.standard_normal((n, m0))
+    G = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    B = np.eye(n) + 0.01 * (G + G.conj().T) / np.sqrt(n)
+    return A, X0, B
+
+
+@pytest.mark.parametrize("with_b", [False, True], ids=["std", "pencil"])
+def test_feast_compiled_graphs_match_plain_loop(dev, with_b):
+    """feast_compiled's sweeps run as CUDA graph replays and give the plain
+    loop's result bit for bit, with as many K1 and K2 launches."""
+    import importlib
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    A, X0, B = _graph_problem()
+    kw = dict(c=5.5, r=5.2, nodes=16, iters=20, tol=1e-10, mixed_prec=True,
+              B=B if with_b else None, device=dev)
+    fmod.clear_graph_cache()
+    counts = []
+    results = []
+    for fn in (ft.feast_compiled, fmod._feast_compiled_plain, ft.feast_compiled):
+        k1, k2 = panel_lu.launches, schur_kernel.launches
+        results.append(fn(A, X0, **kw))
+        torch.cuda.synchronize()
+        counts.append((panel_lu.launches - k1, schur_kernel.launches - k2))
+    prog = next(iter(fmod._PROGRAMS.values()))
+    assert prog.graphs and prog.replays > 0
+    assert counts[0] == counts[1] == counts[2] and counts[0][1] > 0
+    g, p, warm = results
+    for res in (g, warm):
+        assert res.converged and res.n_iter == p.n_iter
+        for a, b in zip(res[:4], p[:4]):
+            assert torch.equal(a, b)
+    fmod.clear_graph_cache()
+
+
+def test_feast_compiled_graphs_read_new_values_at_one_shape(dev):
+    """A cached graph reads each solve's inputs: a second matrix of the same
+    shape gives its own eigenvalues, equal to the plain loop's."""
+    import importlib
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    A, X0, _ = _graph_problem()
+    kw = dict(c=5.5, r=5.2, nodes=16, iters=20, tol=1e-10, mixed_prec=True, device=dev)
+    fmod.clear_graph_cache()
+    first = ft.feast_compiled(A, X0, **kw)
+    A2 = A + 0.25 * np.eye(A.shape[0])
+    prog = next(iter(fmod._PROGRAMS.values()))
+    second = ft.feast_compiled(A2, X0, **kw)
+    assert next(iter(fmod._PROGRAMS.values())) is prog
+    plain = fmod._feast_compiled_plain(A2, X0, **kw)
+    assert not torch.equal(first.lam, second.lam)
+    for a, b in zip(second[:4], plain[:4]):
+        assert torch.equal(a, b)
+    fmod.clear_graph_cache()
+
+
+def test_feast_compiled_graphs_with_the_matrix_product_kernel(dev):
+    """Under cx.set_gemm_backend("cuda") the node solves' products are K3
+    inside the update graph: a new signature, and as many K3 launches per
+    solve as the plain loop's."""
+    import importlib
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    A, X0, _ = _graph_problem()
+    kw = dict(c=5.5, r=5.2, nodes=16, iters=20, tol=1e-10, mixed_prec=True, device=dev)
+    ft.feast_compiled(A, X0, **kw)
+    key = next(iter(fmod._PROGRAMS))
+    cx.set_gemm_backend("cuda")
+    try:
+        counts, results = [], []
+        for fn in (ft.feast_compiled, ft.feast_compiled, fmod._feast_compiled_plain):
+            before = cmatmul_kernel.launches
+            results.append(fn(A, X0, **kw))
+            torch.cuda.synchronize()
+            counts.append(cmatmul_kernel.launches - before)
+        assert list(fmod._PROGRAMS) != [key] and len(fmod._PROGRAMS) == 1
+    finally:
+        cx.set_gemm_backend("torch")
+        fmod.clear_graph_cache()
+    assert counts[0] == counts[1] == counts[2] > 0
+    for a, b in zip(results[1][:4], results[2][:4]):
+        assert torch.equal(a, b)
+
+
+def test_eigh_cannot_be_captured(dev):
+    """Why pencil "hermitian" runs feast_compiled's plain loop: the card's
+    torch.linalg.eigh reads its info on the host, which invalidates a
+    capture.  A failed capture leaves the process's cuSOLVER unusable, so
+    the capture runs in a child process."""
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent("""
+        import numpy as np, torch
+        G = np.random.default_rng(0).standard_normal((48, 48, 2)).view(np.complex128)[..., 0]
+        M = torch.as_tensor(G + G.conj().T, device="cuda")
+        torch.linalg.eigh(M)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                torch.linalg.eigh(M)
+        except RuntimeError as err:
+            print("capture failed:", str(err).splitlines()[0])
+        else:
+            print("captured")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert "capture failed:" in out.stdout, out.stdout + out.stderr
