@@ -27,7 +27,9 @@ Phases, each printing one JSON line:
           and at 128 against LAPACK's eigenvalues: invariants, sweeps and
           rotation steps, ptxas registers, with torch.linalg.eig as a
           yardstick; then its time and invariants at n = 64, 96, 112 and at
-          entries scaled by 1e-20 and 1e18
+          entries scaled by 1e-20 and 1e18; and the stacked slices' launch, a
+          batch of 4 matrices of n = 42, against the plain version, 4
+          launches of one matrix and batched torch.linalg.eig
   k3      the complex64 tensor-core (3xTF32) matrix-product kernel against its
           plain version (three real fp32 matmuls on the planes, Karatsuba) and
           complex128 at (256, 256, 256), (300, 130, 384)
@@ -117,18 +119,29 @@ Phases, each printing one JSON line:
           in-process result (sweeps, inside count, eigenvalues to 1e-10
           relative); the wall of the run and of each worker
   parallel  the mesh= layer over NCCL, one rank per card (world size 1 in
-          process on one card): feast_compiled on the headline against main
-          (the same iterations, eigenvalues to 1e-12); feast_iterative on the
-          1M pencil with fastdiag against fastdiag; feast_sliced and
-          feast_sliced_parallel (mixed_prec, and in full precision as the
-          JAX package runs it) on dense_variants' Hermitian matrix over
-          (0.5, 100.5) in 4 slices: exactly eigvalsh's eigenvalues, host
-          residuals below 1e-10, and each slice's sweeps, convergence and
-          dropped (unconverged) residuals; feast_iterative_rows (node_chunk
-          1) on the unstructured pencil with the row-sharded AMG against
-          unstructured; each call's wall and K1 and K2 launches (K1 where
-          the call factors in complex64: fastdiag factors nothing, the
-          full-precision slices factor in complex128)
+          process on one card): feast_compiled on the headline, its sweeps
+          graphs with the node all-reduce captured, cold, then 3 warm calls
+          in turns with its plain loop under the same mesh: bit for bit
+          that loop, main's eigenvalues to 1e-12 and iterations; then
+          feast_iterative on the 1M pencil with fastdiag against fastdiag;
+          feast_sliced and feast_sliced_parallel on dense_variants'
+          Hermitian matrix over (0.5, 100.5) in 4 slices: the stacked
+          slices' program of graphs (mixed_prec) cold, then 3 warm calls
+          with the plain loop once among them, each call split into the
+          stochastic count, the factor and the loop; per slice the plain
+          loop's sweeps and convergence, eigenvalues within 1e-12
+          relative; one K2 launch a batched sweep; the factor's and the
+          loop's peak within the store and its 4 GiB temporaries; the status read's ms a sweep, capture seconds,
+          launch calls of two sweeps of replays under the profiler and the
+          bytes the cached program holds; then the full-precision call (as the
+          JAX package runs it) on the graphs; every call exactly
+          eigvalsh's eigenvalues, host residuals below 1e-10, and each
+          slice's sweeps, convergence and dropped (unconverged) residuals;
+          feast_iterative_rows (node_chunk 1) on the unstructured pencil
+          with the row-sharded AMG against unstructured; each call's wall,
+          peak memory and K1 and K2 launches (K1 where the call factors in
+          complex64: fastdiag factors nothing, the full-precision slices
+          factor in complex128)
   nonlinear  the reference's gun configuration: gun_like(9956, seed=0,
           planted=25) built on the card, then nlfeast(mixed_prec=True,
           store=False; 16 nodes, c=105, r=8, m0=84, tol 1e-10) from
@@ -560,8 +573,38 @@ def phase_k2(torch, schur_kernel, dev, base=None):
         out[f"n48_scaled_{scale:g}"] = dict(
             schur_checks(torch, f"k2 n=48 x {scale:g}", As, T, Z, Y, X, lam_ref),
             sweeps=int(st[0]))
+    out["batch4_n42"] = k2_batch(torch, schur_kernel, dev)
     emit(out)
     return row
+
+
+def k2_batch(torch, schur_kernel, dev, S=4, n=42):
+    """The stacked slices' launch (`feast_sliced_parallel`, the `parallel`
+    phase): S reduced matrices of m0 = 42 in one launch, each held to the
+    plain version's invariants, timed against S launches of one matrix and
+    against batched torch.linalg.eig; bytes and operations for the bound
+    summed over the batch."""
+    A = torch.randn((S, n, n), dtype=torch.complex64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(n))
+    T, Z, Y, X, st = schur_kernel.schur(A, want_y=True, return_stats=True)
+    Tp, _, _, _, stp = schur_kernel.schur_plain(A, want_y=True, return_stats=True)
+    torch.cuda.synchronize()
+    checks = [schur_checks(torch, f"k2 batch {S} x {n} [{s}]", A[s], T[s], Z[s], Y[s],
+                           X[s], torch.diagonal(Tp[s]).cpu().numpy()) for s in range(S)]
+    alone = [schur_kernel.schur(A[s], want_y=True) for s in range(S)]
+    k_ms = cuda_ms(lambda: schur_kernel.schur(A, want_y=True), 20)
+    single_ms = cuda_ms(lambda: [schur_kernel.schur(A[s], want_y=True) for s in range(S)], 20)
+    p_ms = cuda_ms(lambda: schur_kernel.schur_plain(A, want_y=True), 1)
+    torch.linalg.eig(A)
+    l_ms = cuda_ms(lambda: torch.linalg.eig(A), 5)
+    work = [int(w) for w in st[:, 1]]
+    bms, bby = bound_ms(S * 5 * n * n * 8, sum(schur_flops(n, w) for w in work))
+    return {"batch": S, "n": n, "kernel_ms": k_ms, "single_launches_ms": single_ms,
+            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bms, "bound_by": bby,
+            "sweeps": [int(x) for x in st[:, 0]], "plain_sweeps": [int(x) for x in stp[:, 0]],
+            "work": work, "eig_match_err": max(c["eig_match_err"] for c in checks),
+            "batch_equals_alone": all(torch.equal(T[s], a[0]) and torch.equal(Z[s], a[1])
+                                      for s, a in enumerate(alone))}
 
 
 # ---------------------------------------------------------------------------
@@ -2093,6 +2136,89 @@ def phase_orchestrate(torch, ft, dev, refs, smi):
           "sweep_s": [e["sweep_s"] for e in log if e["event"] == "sweep"], **checked})
 
 
+class Split:
+    """Inside the block, the stacked-slice driver's stochastic count
+    (`spectral_slices`) and factor (the program's `_factor_into`, the plain
+    loop's `_factor_scan`) are timed, each synchronized at its end; `s`
+    holds the seconds of the last call.  The count also resets the peak
+    memory statistics at its end, with the memory then allocated in
+    `base`: the peak after it is the factor's and the loop's."""
+
+    def __init__(self, torch, sl):
+        self.torch, self.sl, self.s, self.base = torch, sl, {}, 0
+        self.names = {"spectral_slices": "spectral_slices", "_factor_into": "factor",
+                      "_factor_scan": "factor"}
+
+    def _timed(self, fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.s[key] = self.s.get(key, 0.0) + time.perf_counter() - t0
+            if key == "spectral_slices":
+                self.base = self.torch.cuda.memory_allocated()
+                self.torch.cuda.reset_peak_memory_stats()
+            return out
+        return run
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.sl, name) for name in self.names}
+        for name, key in self.names.items():
+            setattr(self.sl, name, self._timed(self.saved[name], key))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.sl, name, fn)
+
+
+def sliced_read_cost_ms(torch, prog, sweeps, reps=2):
+    """`read_cost_ms` for the sliced program: its two graphs replayed
+    `sweeps` times with the (2, S) status read between them and without,
+    best of reps each, in turns; ms per sweep."""
+    def sweep_loop(read):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(sweeps):
+            out = prog._step("rr")
+            if read:
+                prog._read(out["status"])
+            prog._step("update")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = {True: [], False: []}
+    for _ in range(reps):
+        for read in (True, False):
+            walls[read].append(sweep_loop(read))
+    return (min(walls[True]) - min(walls[False])) / sweeps * 1e3
+
+
+def counted_call(torch, calls):
+    """call(label, fn, k1=True): fn() synchronized, its wall, K1 and K2
+    launches and peak memory over the start into calls[label]; raises
+    unless K2 (and K1 where k1) launched."""
+    from feast_tpu_torch.ops import panel_lu, schur_kernel
+
+    def call(label, fn, k1=True):
+        panel_lu.launches = schur_kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        calls[label] = {"wall_s": time.perf_counter() - t0,
+                        "k1_launches": panel_lu.launches,
+                        "k2_launches": schur_kernel.launches,
+                        "peak_over_start_gb": (torch.cuda.max_memory_allocated()
+                                               - before) / 1e9}
+        require(schur_kernel.launches > 0 and (panel_lu.launches > 0 or not k1),
+                f"parallel: {label} launches {calls[label]}")
+        return res
+    return call
+
+
 def parallel_rank(rank, world, store, refs, smi):
     """One rank of the `parallel` phase (NCCL, one card a rank): the mesh=
     calls of the slice, each checked against its single-process reference
@@ -2102,40 +2228,16 @@ def parallel_rank(rank, world, store, refs, smi):
     from torch.distributed.device_mesh import init_device_mesh
 
     import feast_tpu_torch as ft
-    from feast_tpu_torch.ops import fastdiag, panel_lu, schur_kernel
+    from feast_tpu_torch.ops import fastdiag
 
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
     dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     try:
         mesh = ft.parallel.node_mesh(device_type="cuda")
         calls = {}
-
-        def call(label, fn, k1=True):
-            panel_lu.launches = schur_kernel.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            calls[label] = {"wall_s": time.perf_counter() - t0,
-                            "k1_launches": panel_lu.launches,
-                            "k2_launches": schur_kernel.launches}
-            require(schur_kernel.launches > 0 and (panel_lu.launches > 0 or not k1),
-                    f"parallel: {label} launches {calls[label]}")
-            return res
-
-        A, X0, c, r = bench_problem()
-        res = call("feast_compiled", lambda: ft.feast_compiled(
-            A, X0, c=c, r=r, nodes=16, iters=20, tol=1e-10, mixed_prec=True, mesh=mesh,
-            device="cuda"))
-        lam, _ = _inside_sorted(res)
-        ref = refs["main"]
-        diff = float(np.max(np.abs(lam - ref["lam"]))) if len(lam) == len(ref["lam"]) else np.inf
-        require(res.converged and res.n_iter == ref["n_iter"] and diff < 1e-12,
-                f"parallel: feast_compiled n_iter {res.n_iter} against {ref['n_iter']}, "
-                f"eigenvalues {diff} from main's")
-        calls["feast_compiled"].update(iterations=res.n_iter, inside=len(lam),
-                                       max_diff_vs_main=diff)
-        del A
+        call = counted_call(torch, calls)
+        parallel_compiled(torch, ft, fmod, mesh, refs, calls, call)
 
         N = 1000
         K, B, lam_exact = build_pencil(N)
@@ -2161,38 +2263,7 @@ def parallel_rank(rank, world, store, refs, smi):
                                         max_relerr_vs_fastdiag=diff)
         del K, B, fd, X0
 
-        H = hermitian_problem()
-        lo, hi = 0.5, 100.5
-        want = refs["eigvalsh"][(refs["eigvalsh"] > lo) & (refs["eigvalsh"] < hi)]
-        smesh = init_device_mesh("cuda", (world,), mesh_dim_names=("slice",))
-        skw = dict(nodes=16, iters=30, tol=1e-10)
-        for label, fn, k1 in (
-                ("feast_sliced", lambda: ft.parallel.feast_sliced(
-                    H, (lo, hi), 4, mesh=mesh, mixed_prec=True, **skw), True),
-                ("feast_sliced_parallel", lambda: ft.parallel.feast_sliced_parallel(
-                    H, (lo, hi), 4, mesh=smesh, mixed_prec=True, **skw), True),
-                # the JAX package's precision: complex128 factors, no panel kernel
-                ("feast_sliced_parallel_full_prec", lambda: ft.parallel.feast_sliced_parallel(
-                    H, (lo, hi), 4, mesh=smesh, **skw), False)):
-            out = call(label, fn, k1=k1)
-            order = np.argsort(out.lam.real)
-            lam, X = out.lam[order], out.X[:, order]
-            rr = np.linalg.norm(H @ X - X * lam[None, :], axis=0)
-            # exactly eigvalsh's eigenvalues, each with its host residual; a
-            # slice that stops at its cap with a spurious value inside (the
-            # uniform m0's tie, slicing.py) contributes its converged pairs
-            err = float(np.max(np.abs(lam - want))) if len(lam) == len(want) else np.inf
-            require(err < 1e-10 and rr.max() < 1e-10,
-                    f"parallel: {label} {len(lam)} eigenvalues, eigvalsh {len(want)}; "
-                    f"{err} from eigvalsh, host residuals up to {rr.max()}")
-            spurious = [[float(x) for x in np.sort(s.filtered()[2])
-                         if x >= skw["tol"]] for s in out.per_slice]
-            calls[label].update(found=len(lam), max_err_vs_eigvalsh=err,
-                                max_residual_host_f64=float(rr.max()), m0=out.per_slice[0].X.shape[1],
-                                iterations=[x.n_iter for x in out.per_slice],
-                                converged=[x.converged for x in out.per_slice],
-                                dropped_residuals=spurious)
-        del H
+        parallel_sliced(torch, ft, fmod, mesh, world, refs, calls, call)
 
         K, M, c, r, want, X0 = refs["unstructured_problem"]
         rmesh = ft.parallel.node_row_mesh(world, 1, device_type="cuda")
@@ -2206,7 +2277,226 @@ def parallel_rank(rank, world, store, refs, smi):
             emit({"phase": "parallel", "world": world, "backend": dist.get_backend(),
                   "card": smi, "calls": calls})
     finally:
+        fmod.clear_graph_cache()    # the graphs hold the group's all-reduce
         dist.destroy_process_group()
+
+
+def _bit_equal(a, b):
+    import torch
+
+    return (a.n_iter == b.n_iter and a.converged == b.converged
+            and all(torch.equal(x, y) for x, y in zip(a[:4], b[:4])))
+
+
+def parallel_compiled(torch, ft, fmod, mesh, refs, calls, call, reps=3):
+    """feast_compiled(mesh=) on the headline, its sweeps graphs with the
+    node all-reduce captured: a cold call (capture timed), then reps warm
+    calls of the graphs and of the plain loop under the same mesh in turns
+    (plain, graph, graph, plain, ...), one warm graph call under the
+    profiler; bit for bit the plain loop, with its K1 and K2 launches, and
+    main's eigenvalues to 1e-12 with main's iterations."""
+    A, X0, c, r = bench_problem()
+    At, Xt = torch.as_tensor(A, device="cuda"), torch.as_tensor(X0, device="cuda")
+    kw = dict(c=c, r=r, nodes=16, iters=20, tol=1e-10, mixed_prec=True, mesh=mesh,
+              device="cuda")
+
+    def graph():
+        return ft.feast_compiled(At, Xt, **kw)
+
+    def plain():
+        return fmod._feast_compiled_plain(At, Xt, **kw)
+
+    fmod.clear_graph_cache()
+    torch.cuda.empty_cache()
+    res = call("feast_compiled", graph)
+    prog = next(iter(fmod._PROGRAMS.values()))
+    require(prog.graphs and prog.replays > 0,
+            "parallel: feast_compiled(mesh=) did not replay its graphs")
+    info = dict(calls["feast_compiled"], capture_s=prog.capture_s,
+                instantiate_s=prog.instantiate_s, replays_cold=prog.replays,
+                sweeps=list(prog.sweeps))
+    walls = {"graph": [], "plain": []}
+    launches = {"graph": set(), "plain": set()}
+    for i in range(reps):
+        order = (("plain", plain), ("graph", graph))
+        for route, fn in (order if i % 2 == 0 else order[::-1]):
+            out = call(f"feast_compiled_{route}", fn)
+            got = calls.pop(f"feast_compiled_{route}")
+            walls[route].append(got["wall_s"])
+            launches[route].add((got["k1_launches"], got["k2_launches"]))
+            if route == "plain":
+                res_p = out
+            else:
+                res = out
+    tr = traced(torch, graph, cpu=False)
+    held = torch.cuda.memory_allocated()
+    fmod.clear_graph_cache()
+    del prog
+    held = (held - torch.cuda.memory_allocated()) / 1e9
+    lam, _ = _inside_sorted(res)
+    ref = refs["main"]
+    diff = float(np.max(np.abs(lam - ref["lam"]))) if len(lam) == len(ref["lam"]) else np.inf
+    require(res.converged and res.n_iter == ref["n_iter"] and diff < 1e-12,
+            f"parallel: feast_compiled n_iter {res.n_iter} against {ref['n_iter']}, "
+            f"eigenvalues {diff} from main's")
+    require(_bit_equal(res, res_p), "parallel: feast_compiled(mesh=) graphs differ from "
+            "the plain loop under the same mesh")
+    require(len(launches["graph"]) == 1 and launches["graph"] == launches["plain"]
+            and (info["k1_launches"], info["k2_launches"]) in launches["graph"],
+            f"parallel: feast_compiled(mesh=) K1, K2 launches {launches}, cold "
+            f"{info['k1_launches']}, {info['k2_launches']}")
+    calls["feast_compiled"] = dict(
+        info, iterations=res.n_iter, inside=len(lam), max_diff_vs_main=diff,
+        bit_equal_plain=True, graph_walls_s=walls["graph"], plain_walls_s=walls["plain"],
+        graph_best_s=min(walls["graph"]), plain_best_s=min(walls["plain"]),
+        graph_launch_calls=tr["launch_calls"], graph_launches=tr["graph_launches"],
+        graph_device_idle_share=tr["device_idle_share"], graph_profiled_wall_s=tr["wall_s"],
+        cache_allocated_gb=held)
+    del At, Xt
+
+
+def check_sliced(label, out, H, want, tol):
+    """Exactly eigvalsh's eigenvalues, each with its host residual below
+    1e-10; a slice that stops at its cap with a spurious value inside (the
+    uniform m0's tie, slicing.py) contributes its converged pairs."""
+    order = np.argsort(out.lam.real)
+    lam, X = out.lam[order], out.X[:, order]
+    rr = np.linalg.norm(H @ X - X * lam[None, :], axis=0)
+    err = float(np.max(np.abs(lam - want))) if len(lam) == len(want) else np.inf
+    require(err < 1e-10 and rr.max() < 1e-10,
+            f"parallel: {label} {len(lam)} eigenvalues, eigvalsh {len(want)}; "
+            f"{err} from eigvalsh, host residuals up to {rr.max()}")
+    spurious = [[float(x) for x in np.sort(s.filtered()[2]) if x >= tol]
+                for s in out.per_slice]
+    return dict(found=len(lam), max_err_vs_eigvalsh=err, max_residual_host_f64=float(rr.max()),
+                m0=out.per_slice[0].X.shape[1], iterations=[x.n_iter for x in out.per_slice],
+                converged=[x.converged for x in out.per_slice], dropped_residuals=spurious)
+
+
+def parallel_sliced(torch, ft, fmod, mesh, world, refs, calls, call, reps=3):
+    """feast_sliced (node mesh), then feast_sliced_parallel (slice mesh) on
+    dense_variants' Hermitian matrix over (0.5, 100.5) in 4 slices: the
+    program's graphs (mixed_prec) cold, then 3 warm calls with the plain
+    loop (`_feast_sliced_parallel_plain`) once among them, and the
+    full-precision call on the graphs.  Each call split into the
+    stochastic count, the factor and the loop; the graphs' capture,
+    sweeps, fallbacks, status-read cost, launch calls (two sweeps of
+    replays under the profiler), peak memory against the factor store and
+    the bytes the cached program holds.  Per slice the graphs and the
+    plain loop run the same sweeps and converge alike, eigenvalues within
+    1e-12 relative; the graphs launch K2 once a batched sweep."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sl = importlib.import_module("feast_tpu_torch.parallel.slicing")
+    H = hermitian_problem()
+    lo, hi = 0.5, 100.5
+    want = refs["eigvalsh"][(refs["eigvalsh"] > lo) & (refs["eigvalsh"] < hi)]
+    smesh = init_device_mesh("cuda", (world,), mesh_dim_names=("slice",))
+    skw = dict(nodes=16, iters=30, tol=1e-10)
+    out = call("feast_sliced", lambda: ft.parallel.feast_sliced(
+        H, (lo, hi), 4, mesh=mesh, mixed_prec=True, **skw))
+    calls["feast_sliced"].update(check_sliced("feast_sliced", out, H, want, skw["tol"]))
+
+    Ht = torch.as_tensor(H, device="cuda")
+    split = Split(torch, sl)
+
+    def run(label, fn, k1=True):
+        split.s = {}
+        with split:
+            res = call(label, fn, k1=k1)
+        info = calls[label]
+        info["split_s"] = dict(split.s, loop=info["wall_s"] - sum(split.s.values()))
+        info["peak_factor_loop_gb"] = (torch.cuda.max_memory_allocated() - split.base) / 1e9
+        info.update(check_sliced(label, res, H, want, skw["tol"]))
+        return res
+
+    def graph(mixed=True):
+        return lambda: ft.parallel.feast_sliced_parallel(
+            Ht, (lo, hi), 4, mesh=smesh, mixed_prec=mixed, **skw)
+
+    fmod.clear_graph_cache()
+    torch.cuda.empty_cache()
+    res_g = run("feast_sliced_parallel", graph())
+    prog = next(iter(fmod._PROGRAMS.values()))
+    cold = calls["feast_sliced_parallel"]
+    store_gb = prog.buf["store"].numel() * prog.buf["store"].element_size() / 1e9
+    cold.update(capture_s=prog.capture_s, instantiate_s=prog.instantiate_s,
+                sweeps=prog.sweeps, fallbacks=prog.fallbacks, replays=prog.replays,
+                store_gb=store_gb)
+    walls, warm = [], None
+    for i in range(reps):
+        if i == 1:     # the plain loop once, between the warm graph calls
+            res_p = run("feast_sliced_parallel_plain", lambda: sl._feast_sliced_parallel_plain(
+                Ht, (lo, hi), 4, mesh=smesh, mixed_prec=True, **skw))
+        before = prog.replays
+        res_w = run("feast_sliced_parallel_warm", graph())
+        walls.append(calls["feast_sliced_parallel_warm"]["wall_s"])
+        if warm is None or walls[-1] <= min(walls):
+            warm = dict(calls["feast_sliced_parallel_warm"], replays=prog.replays - before)
+    calls.pop("feast_sliced_parallel_warm")
+    read_ms = sliced_read_cost_ms(torch, prog, min(prog.sweeps, 8))
+
+    def two_sweeps():
+        for _ in range(2):
+            prog._read(prog._step("rr")["status"])
+            prog._step("update")
+
+    # the loop's own launches: two sweeps of replays (a whole call under the
+    # profiler holds the stochastic count's 1.3e6 kernels, a minute to read)
+    tr = traced(torch, two_sweeps, cpu=False)
+    held = torch.cuda.memory_allocated()
+    fmod.clear_graph_cache()
+    del prog
+    held = (held - torch.cuda.memory_allocated()) / 1e9
+    plain = calls["feast_sliced_parallel_plain"]
+    # per slice its eigenvalues, the converged pairs the merge keeps (a
+    # value parked at the cap is no eigenvalue: its Ritz value mixes two
+    # outside ones and moves with rounding)
+    diffs = []
+    for g, p in zip(res_g.per_slice, res_p.per_slice):
+        require(g.n_iter == p.n_iter and g.converged == p.converged,
+                f"parallel: sliced graphs {g.n_iter} sweeps ({g.converged}), the plain "
+                f"loop {p.n_iter} ({p.converged})")
+        lg, lp = (np.sort(lam[res < skw["tol"]].real)
+                  for lam, _, res in (g.filtered(), p.filtered()))
+        require(len(lg) == len(lp), f"parallel: sliced graphs {len(lg)} converged, plain "
+                f"{len(lp)}")
+        diffs.append(float(np.max(np.abs(lg - lp) / np.abs(lp))) if len(lp) else 0.0)
+    cold["max_relerr_vs_plain_by_slice"] = diffs
+    require(max(diffs) <= 1e-12, f"parallel: sliced graphs {diffs} relative from the plain loop")
+    require(all(_bit_equal(a, b) for a, b in zip(res_g.per_slice, res_w.per_slice)),
+            "parallel: a warm sliced graph call differs from the cold one")
+    rank, count = torch.distributed.get_rank(), 4 // world     # this rank's slices
+    require(cold["k2_launches"] == warm["k2_launches"] == cold["sweeps"]
+            == max(r.n_iter for r in res_g.per_slice[rank * count:(rank + 1) * count]),
+            f"parallel: sliced graphs K2 {cold['k2_launches']}, {warm['k2_launches']} in "
+            f"{cold['sweeps']} sweeps")
+    require(cold["k1_launches"] == warm["k1_launches"] == plain["k1_launches"],
+            f"parallel: sliced K1 {cold['k1_launches']}, {warm['k1_launches']}, plain "
+            f"{plain['k1_launches']}")
+    # no second copy of the store: above it only the factor's temporaries
+    # (chunks of at most 4 GiB, ops/lu.py::batch_chunks) and small buffers
+    require(cold["peak_factor_loop_gb"] < store_gb + 4.3 + 1.5,
+            f"parallel: sliced graphs' factor and loop peak {cold['peak_factor_loop_gb']} "
+            f"GB over a {store_gb} GB store")
+    cold.update(warm=warm, warm_walls_s=walls, warm_best_s=min(walls),
+                status_read_ms_per_sweep=read_ms,
+                two_sweeps_launch_calls=tr["launch_calls"],
+                two_sweeps_graph_launches=tr["graph_launches"],
+                two_sweeps_kernel_count=tr["kernel_count"],
+                two_sweeps_device_idle_share=tr["device_idle_share"],
+                two_sweeps_profiled_wall_s=tr["wall_s"], cache_allocated_gb=held)
+    # the JAX package's precision: complex128 factors (no panel kernel) on
+    # the graphs
+    fmod.clear_graph_cache()
+    run("feast_sliced_parallel_full_prec", graph(mixed=False), k1=False)
+    prog = next(iter(fmod._PROGRAMS.values()))
+    calls["feast_sliced_parallel_full_prec"].update(
+        capture_s=prog.capture_s, instantiate_s=prog.instantiate_s, sweeps=prog.sweeps,
+        fallbacks=prog.fallbacks,
+        store_gb=prog.buf["store"].numel() * prog.buf["store"].element_size() / 1e9)
+    fmod.clear_graph_cache()
+    del prog, Ht
 
 
 def phase_parallel(torch, ft, dev, refs, smi):

@@ -122,9 +122,11 @@ def set_schur_backend(name: str):
 
 
 def _kernel_gate(A: torch.Tensor) -> bool:
+    """Whether complex64 A (n, n), or a batch (..., n, n) in one launch,
+    takes the Schur kernel."""
     n = A.shape[-1]
     return (_SCHUR_BACKEND == "cuda" and A.dtype == torch.complex64
-            and A.is_cuda and A.dim() == 2 and 2 <= n <= 128)
+            and A.is_cuda and 2 <= n <= 128)
 
 
 def _pow2_exponent(A: torch.Tensor) -> int:
@@ -237,7 +239,8 @@ def _ii_polish(A: torch.Tensor, lam: torch.Tensor, V: torch.Tensor,
                steps: int = 2):
     """Batched inverse iteration with Rayleigh-quotient shifts.  Each step
     solves (A - lam_j I) y_j = v_j for all j at once through the plain
-    blocked LU, whose zero-pivot guard keeps the exact-shift solve finite."""
+    blocked LU, whose zero-pivot guard keeps the exact-shift solve finite.
+    A (..., n, n), lam (..., n), V (..., n, n)."""
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
 
@@ -246,26 +249,36 @@ def _ii_polish(A: torch.Tensor, lam: torch.Tensor, V: torch.Tensor,
 
     for _ in range(steps):
         lam = rq(V)
-        Sb = A[None] - lam[:, None, None] * eye[None]
-        Y = lumod.solve_batched(Sb, V.mT[:, :, None])
-        V = cx.normalize_cols(Y[:, :, 0].mT)
+        Sb = A[..., None, :, :] - lam[..., :, None, None] * eye
+        Y = lumod.solve_batched(Sb, V.mT[..., :, :, None])
+        V = cx.normalize_cols(Y[..., 0].mT)
     return rq(V), V
 
 
 def _schur_vecs32(A: torch.Tensor, want_inv: bool = True):
-    """(T, Z, Y, X = Y^-1): one kernel launch for complex64 on the card,
-    the plain pieces elsewhere (any dtype)."""
+    """(T, Z, Y, X = Y^-1) of A (..., n, n): one kernel launch for
+    complex64 on the card (a batch in the same launch), the plain pieces
+    elsewhere (any dtype, one matrix at a time)."""
     if _kernel_gate(A):
         from . import schur_kernel
 
         return schur_kernel.schur(A, want_y=True)
+    if A.dim() == 2:
+        return _schur_vecs_plain(A, want_inv)
+    parts = [_schur_vecs_plain(M, want_inv) for M in A.reshape((-1,) + A.shape[-2:])]
+    return tuple(None if p[0] is None else torch.stack(p).reshape(A.shape)
+                 for p in zip(*parts))
+
+
+def _schur_vecs_plain(A: torch.Tensor, want_inv: bool):
     T, Z = schur(A)
     Y = tri_eigvecs(T)
     return T, Z, Y, (tri_unit_inv(Y) if want_inv else None)
 
 
 def eig_mixed(A: torch.Tensor, ii_steps: int = 2):
-    """complex64 Schur seed + complex128 inverse-iteration polish."""
+    """complex64 Schur seed + complex128 inverse-iteration polish, over
+    leading batch dims (one Schur launch on the card for the batch)."""
     if A.dtype == torch.complex64:
         return eig(A)
     T32, Z32, Y32, _ = _schur_vecs32(A.to(torch.complex64))
@@ -275,13 +288,14 @@ def eig_mixed(A: torch.Tensor, ii_steps: int = 2):
 
 
 def _indep_flag(V: torch.Tensor, floor: float = 1e-4) -> torch.Tensor:
-    """Column-independence guard of the mixed eig, as a 0-d bool tensor: the
-    pivots of the Cholesky factor of V^H V (unit columns) bound
-    sigma_min(V) from above, and a pivot at or below `floor` rejects V."""
+    """Column-independence guard of the mixed eig, as a bool tensor of V's
+    batch shape (0-d for one matrix): the pivots of the Cholesky factor of
+    V^H V (unit columns) bound sigma_min(V) from above, and a pivot at or
+    below `floor` rejects V."""
     from . import qr as qrmod
 
     d = _diag(qrmod.cholesky(cx.cgram(V))).real
-    return torch.isfinite(d).all() & (torch.min(d) > floor)
+    return torch.isfinite(d).all(-1) & (torch.amin(d, dim=-1) > floor)
 
 
 def _indep_ok(V: torch.Tensor, floor: float = 1e-4) -> bool:
@@ -325,16 +339,18 @@ def _eig_full(A: torch.Tensor, refine_rq: bool = True):
 
 def _eig_flagged(A: torch.Tensor):
     """The mixed path of `eig` with its acceptance decided on the device:
-    (lam, V, ok), ok a 0-d bool tensor that holds where every residual
-    column is within 1e-12 max(||A||_F, 1) sqrt(n) and V passes
-    `_indep_flag` (feast_tpu/ops/eig.py:498-505).  Where ok is false the
-    caller takes `_eig_full`, as `eig` does.  Nothing is read on the host
-    but what the complex64 Schur seed reads (on the card: one K2 launch)."""
+    (lam, V, ok), ok a bool tensor that holds where every residual column
+    is within 1e-12 max(||A||_F, 1) sqrt(n) and V passes `_indep_flag`
+    (feast_tpu/ops/eig.py:498-505).  Where ok is false the caller takes
+    `_eig_full`, as `eig` does.  Nothing is read on the host but what the
+    complex64 Schur seed reads (on the card: one K2 launch).  A batch
+    (..., n, n) gives ok of shape (...): each matrix its own guard, as
+    under the JAX package's vmap."""
     n = A.shape[-1]
     lam, V = eig_mixed(A, ii_steps=3)
     R = A @ V - cx.scale_cols(V, lam)
     scale = torch.clamp(cx.fro_norm(A), min=1.0)
-    ok = torch.max(cx.col_norms(R)) <= 1e-12 * scale * math.sqrt(n)
+    ok = torch.amax(cx.col_norms(R), dim=-1) <= 1e-12 * scale * math.sqrt(n)
     return lam, V, ok & _indep_flag(V)
 
 
@@ -367,15 +383,16 @@ def _rq_refine_pencil(A, B, w, V, U, kappa_max: float = 1e4):
 
 def _gen_eig_flagged(A: torch.Tensor, B: torch.Tensor):
     """The mixed path of `gen_eig` with its acceptance decided on the
-    device: (lam, V, ok), ok a 0-d bool tensor: every residual column
-    within 1e-12 max(||A||_F + max|lam| ||B||_F, 1) sqrt(n), and V passing
-    `_indep_flag`.  Where ok is false the caller takes `_gen_eig_full`."""
+    device: (lam, V, ok), ok a bool tensor of the batch shape: every
+    residual column within 1e-12 max(||A||_F + max|lam| ||B||_F, 1)
+    sqrt(n), and V passing `_indep_flag`.  Where ok is false the caller
+    takes `_gen_eig_full`."""
     n = A.shape[-1]
     lam, V = _gen_eig_mixed(A, B)
     R = A @ V - cx.scale_cols(B @ V, lam)
-    scale = torch.clamp(cx.fro_norm(A) + torch.max(cx.cabs(lam)) * cx.fro_norm(B),
-                        min=1.0)
-    ok = torch.max(cx.col_norms(R)) <= 1e-12 * scale * math.sqrt(n)
+    scale = torch.clamp(cx.fro_norm(A) + torch.amax(cx.cabs(lam), dim=-1)
+                        * cx.fro_norm(B), min=1.0)
+    ok = torch.amax(cx.col_norms(R), dim=-1) <= 1e-12 * scale * math.sqrt(n)
     return lam, V, ok & _indep_flag(V)
 
 
@@ -391,7 +408,7 @@ def gen_eig(A: torch.Tensor, B: torch.Tensor, refine_rq: bool = True):
 
 def _gen_eig_mixed(A: torch.Tensor, B: torch.Tensor, ii_steps: int = 3):
     """complex64 Schur seed of B^{-1} A + complex128 pencil inverse
-    iteration with shifts (v^H A v)/(v^H B v)."""
+    iteration with shifts (v^H A v)/(v^H B v), over leading batch dims."""
     LU, perm = lumod.lu_factor(B)
     C = lumod.lu_solve(LU, perm, A)
     T32, Z32, Y32, _ = _schur_vecs32(C.to(torch.complex64))
@@ -405,9 +422,9 @@ def _gen_eig_mixed(A: torch.Tensor, B: torch.Tensor, ii_steps: int = 3):
 
     lam = rq(V)
     for _ in range(ii_steps):
-        Sb = A[None] - lam[:, None, None] * B[None]
-        Y = lumod.solve_batched(Sb, (B @ V).mT[:, :, None])
-        V = cx.normalize_cols(Y[:, :, 0].mT)
+        Sb = A[..., None, :, :] - lam[..., :, None, None] * B[..., None, :, :]
+        Y = lumod.solve_batched(Sb, (B @ V).mT[..., :, :, None])
+        V = cx.normalize_cols(Y[..., 0].mT)
         lam = rq(V)
     return lam, V
 

@@ -212,13 +212,14 @@ def lu_factor_inplace(buf: torch.Tensor, n: int):
         raise it to 1 for a matrix with entries below 1);
       * the pad columns end with zero pivots, replaced by that floor, and
         zero multipliers: they touch nothing of A.
-    Elsewhere `buf` is n x n and takes `lu_factor`'s plain path."""
+    Elsewhere `buf` is n x n and takes `lu_factor`'s plain path, in place
+    too: the store is never held twice."""
     if buf.shape[-1] != n or (n % 128 == 0 and _kernel_route(buf.dtype, buf.device)):
         from . import panel_lu
 
         LU, perm = panel_lu.lu_factor_panel(buf, inplace=True)
         return LU[..., :n, :n], perm[..., :n]
-    return _lu_factor_plain(buf, _auto_block(n))
+    return _lu_factor_plain(buf, _auto_block(n), inplace=True)
 
 
 def _check_kernel_input(A: torch.Tensor):
@@ -276,36 +277,55 @@ def lu_factor(A: torch.Tensor, block: int = 0, loop: str = "auto"):
                      "expected 'auto', 'unrolled', 'fori' or 'pallas'")
 
 
-def _lu_factor_plain(A: torch.Tensor, block: int):
-    """The plain blocked loop of `lu_factor`, panels of `block` columns."""
+# The row gathers and trailing updates of a factor run over chunks of its
+# batch of at most this many bytes of matrices, so that their temporaries
+# stay a fraction of a large store (the stacked slices' 64 node matrices
+# of n = 4096: 8.6 GB in complex64); every batch of one solve's nodes at
+# the sizes the other drivers run fits one chunk.
+_CHUNK_BYTES = 4 << 30
+
+
+def batch_chunks(A3: torch.Tensor):
+    """Slices of the leading batch axis of (B, m, n) in chunks of at most
+    `_CHUNK_BYTES` (at least one matrix each)."""
+    step = max(1, _CHUNK_BYTES // (A3.shape[-2] * A3.shape[-1] * A3.element_size()))
+    return [slice(c, c + step) for c in range(0, A3.shape[0], step)]
+
+
+def _lu_factor_plain(A: torch.Tensor, block: int, inplace: bool = False):
+    """The plain blocked loop of `lu_factor`, panels of `block` columns;
+    inplace factors a contiguous A itself."""
     n = A.shape[-1]
+    if inplace and not A.is_contiguous():
+        raise ValueError("an in-place factor needs a contiguous tensor")
     A3, batch = _flat(A, 2)
-    A3 = A3.clone()
+    A3 = A3 if inplace else A3.clone()
     Bsz = A3.shape[0]
     perm = torch.arange(n, device=A.device).repeat(Bsz, 1)
     for j in range(0, n, block):
         b = min(block, n - j)
         panel, swaps = _panel_lu(A3[:, j:, j:j + b])
         sub_perm = _swaps_to_perm(swaps, n - j)
-        idx = sub_perm[:, :, None]
-        # apply the panel's row permutation to the off-panel columns
-        if j > 0:
-            A3[:, j:, :j] = torch.gather(A3[:, j:, :j], 1,
-                                         idx.expand(-1, -1, j))
-        right = None
-        if j + b < n:
-            right = torch.gather(A3[:, j:, j + b:], 1,
-                                 idx.expand(-1, -1, n - j - b))
         perm[:, j:] = torch.gather(perm[:, j:], 1, sub_perm)
-        A3[:, j:, j:j + b] = panel
-        if right is not None:
-            U12 = _unit_lower_solve_small(panel[:, :b, :b], right[:, :b])
-            A3[:, j:j + b, j + b:] = U12
-            # the trailing update in place: one (n - j - b)^2 temporary
-            # per matrix, not three
-            A3[:, j + b:, j + b:] = right[:, b:]
-            del right
-            A3[:, j + b:, j + b:].sub_(cx.cmatmul(panel[:, b:, :b], U12))
+        for c in batch_chunks(A3):
+            Ac, pc, idx = A3[c], panel[c], sub_perm[c, :, None]
+            # apply the panel's row permutation to the off-panel columns
+            if j > 0:
+                Ac[:, j:, :j] = torch.gather(Ac[:, j:, :j], 1,
+                                             idx.expand(-1, -1, j))
+            right = None
+            if j + b < n:
+                right = torch.gather(Ac[:, j:, j + b:], 1,
+                                     idx.expand(-1, -1, n - j - b))
+            Ac[:, j:, j:j + b] = pc
+            if right is not None:
+                U12 = _unit_lower_solve_small(pc[:, :b, :b], right[:, :b])
+                Ac[:, j:j + b, j + b:] = U12
+                # the trailing update in place: one (n - j - b)^2 temporary
+                # per matrix, not three
+                Ac[:, j + b:, j + b:] = right[:, b:]
+                del right
+                Ac[:, j + b:, j + b:].sub_(cx.cmatmul(pc[:, b:, :b], U12))
     return A3.reshape(batch + (n, n)), perm.reshape(batch + (n,))
 
 

@@ -16,7 +16,8 @@ its launch plan on the host (cluster size, sub-panel width, shared memory)
 and `card_plan` asks the built kernel for the plan it takes on this card.
 
 `lu_factor_panel` mirrors `lu_factor_pallas`: per panel one kernel call,
-the panel's row permutation applied to the other columns as one gather,
+the panel's row permutation applied to the other columns as one gather (by
+chunks of a batch above 4 GiB, `lu.batch_chunks`),
 U12 = invL11 @ A12 and the trailing update as matmuls.
 """
 
@@ -28,7 +29,7 @@ import torch
 
 from .. import cx
 from ..kernels import _build
-from .lu import _swap_rows
+from .lu import _swap_rows, batch_chunks
 
 # Launches of the CUDA kernel (plain-version calls do not count; a graph's
 # replays count the launches it holds, `_build.count_launch`).
@@ -204,12 +205,16 @@ def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor,
         # the panel's swaps touch rows >= j only: one gather of those rows
         # applies them to every column outside the slab
         idx = (pb[:, j:] - j)[:, :, None]
-        if j > 0:
-            A3[:, j:, :j] = torch.gather(A3[:, j:, :j], 1, idx.expand(-1, -1, j))
         perm = torch.gather(perm, 1, pb)
-        if e < n:
-            A3[:, j:, e:] = torch.gather(A3[:, j:, e:], 1, idx.expand(-1, -1, n - e))
-            U12 = cx.cmatmul(invL, A3[:, j:e, e:])
-            A3[:, j:e, e:] = U12
-            A3[:, e:, e:] -= cx.cmatmul(A3[:, e:, j:e], U12)
+        # the gathers and the trailing update by chunks of the batch
+        # (`lu.batch_chunks`): their temporaries stay below 4 GiB
+        for c in batch_chunks(A3):
+            Ac, ic = A3[c], idx[c]
+            if j > 0:
+                Ac[:, j:, :j] = torch.gather(Ac[:, j:, :j], 1, ic.expand(-1, -1, j))
+            if e < n:
+                Ac[:, j:, e:] = torch.gather(Ac[:, j:, e:], 1, ic.expand(-1, -1, n - e))
+                U12 = cx.cmatmul(invL[c], Ac[:, j:e, e:])
+                Ac[:, j:e, e:] = U12
+                Ac[:, e:, e:] -= cx.cmatmul(Ac[:, e:, j:e], U12)
     return A3.reshape(batch + (n, n)), perm.reshape(batch + (n,))

@@ -17,7 +17,8 @@ from .. import cx
 
 
 def cholesky(G: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor L of a Hermitian positive (semi)definite G.
+    """Lower Cholesky factor L of a Hermitian positive (semi)definite G,
+    over leading batch dims (each matrix its own floor and cap).
 
     A breakdown pivot (not finite or below eps^2 * max(max|diag|, 1)) gets
     diagonal sqrt(floor) and zeros below it; other entries are clamped to
@@ -26,14 +27,15 @@ def cholesky(G: torch.Tensor) -> torch.Tensor:
     G = G.clone()
     rows = torch.arange(m, device=G.device)
     eps = torch.finfo(cx.real_dtype(G.dtype)).eps
-    g0 = torch.clamp(torch.max(torch.abs(torch.diagonal(G).real)), min=1.0)
+    g0 = torch.clamp(torch.amax(torch.abs(torch.diagonal(G, dim1=-2, dim2=-1).real),
+                                dim=-1), min=1.0)[..., None]
     floor = eps * eps * g0
     cap = 2.0 * torch.sqrt(g0)
     for k in range(m):
-        dkk = G[k, k].real
+        dkk = G[..., k, k, None].real
         deficient = ~(torch.isfinite(dkk) & (dkk > floor))
         d = torch.sqrt(torch.where(deficient, floor, dkk))
-        col = G[:, k]
+        col = G[..., :, k]
         below, at_k, at_or_below = rows > k, rows == k, rows >= k
         cre = torch.where(below & deficient, 0.0,
                           torch.where(at_k & deficient, d * d, col.real))
@@ -43,24 +45,24 @@ def cholesky(G: torch.Tensor) -> torch.Tensor:
         mag = cx.cabs(newcol)
         scale_dn = torch.where(mag > cap, cap / torch.where(mag > cap, mag, 1.0), 1.0)
         newcol = torch.where(below, newcol * scale_dn, newcol)
-        G[:, k] = newcol
+        G[..., :, k] = newcol
         lk = torch.where(below, newcol, 0.0)
-        G -= torch.outer(lk, lk.conj())
+        G -= lk[..., :, None] * lk.conj()[..., None, :]
     return torch.tril(G)
 
 
 def solve_lower(L: torch.Tensor, B: torch.Tensor, unit: bool = False) -> torch.Tensor:
-    """Solve L X = B, L (m, m) lower triangular, B (m, k)."""
+    """Solve L X = B, L (..., m, m) lower triangular, B (..., m, k)."""
     m = L.shape[-1]
     X = B.clone()
     eps = torch.finfo(cx.real_dtype(L.dtype)).eps
     for i in range(m):
-        rhs = X[i] - L[i, :i] @ X[:i]
+        rhs = X[..., i, :] - (L[..., i, None, :i] @ X[..., :i, :])[..., 0, :]
         if not unit:
-            d = L[i, i]
+            d = L[..., i, i, None]
             d = torch.where(cx.abs2(d) > 0, d, torch.full_like(d, eps * eps))
             rhs = cx.cdiv(rhs, d)
-        X[i] = rhs
+        X[..., i, :] = rhs
     return X
 
 
@@ -78,8 +80,18 @@ def solve_upper(U: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 def right_solve_upper(A: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
-    """A R^{-1} (A (n, m), R (m, m) upper) via R^H Y = A^H."""
+    """A R^{-1} (A (..., n, m), R (..., m, m) upper) via R^H Y = A^H."""
     return solve_lower(R.mH, A.mH).mH.resolve_conj()
+
+
+def _trace(G: torch.Tensor) -> torch.Tensor:
+    """The trace of each matrix of (..., m, m), each by torch.trace: a
+    batch's shifts round as its matrices' alone (a sum over the diagonal
+    adds in another order)."""
+    if G.dim() == 2:
+        return torch.trace(G)
+    return torch.stack([torch.trace(g) for g in G.reshape((-1,) + G.shape[-2:])]
+                       ).reshape(G.shape[:-2])
 
 
 def cholqr(A: torch.Tensor, shift: bool = True, reduce=None):
@@ -87,16 +99,17 @@ def cholqr(A: torch.Tensor, shift: bool = True, reduce=None):
 
     reduce: for A a row block of a taller matrix, the callable that sums
     the block Grams over the row blocks (an all-reduce); the shift then uses
-    the block's own row count, as the JAX package's psum_axis does."""
-    n, m = A.shape
+    the block's own row count, as the JAX package's psum_axis does.  A may
+    carry leading batch dims, each matrix shifted by its own trace."""
+    n, m = A.shape[-2:]
     G = cx.cgram(A)
     if reduce is not None:
         G = reduce(G)
     if shift:
         eps = torch.finfo(cx.real_dtype(A.dtype)).eps
         # shifted CholeskyQR (Fukaya et al. 2020)
-        s = 11.0 * (m * n + n * (n + 1)) * eps * torch.trace(G.real) / m
-        G = G + s * torch.eye(m, dtype=G.dtype, device=G.device)
+        s = 11.0 * (m * n + n * (n + 1)) * eps * _trace(G.real) / m
+        G = G + s[..., None, None] * torch.eye(m, dtype=G.dtype, device=G.device)
     R = cholesky(G).mH
     return right_solve_upper(A, R), R
 
@@ -152,16 +165,17 @@ def householder_qr(A: torch.Tensor):
 
 def colscale_unit(A: torch.Tensor) -> torch.Tensor:
     """Scale columns to unit 2-norm with a max-abs pre-scale, so columns
-    with tiny entries do not underflow the squared-norm sum."""
+    with tiny entries do not underflow the squared-norm sum.  (..., n, m)."""
     tiny = torch.finfo(cx.real_dtype(A.dtype)).tiny
-    amax = torch.amax(torch.maximum(A.real.abs(), A.imag.abs()), dim=0)
+    amax = torch.amax(torch.maximum(A.real.abs(), A.imag.abs()), dim=-2, keepdim=True)
     As = A * (1.0 / torch.where(amax > tiny, amax, 1.0))
-    nrm = torch.sqrt(torch.sum(cx.abs2(As), dim=0))
+    nrm = torch.sqrt(torch.sum(cx.abs2(As), dim=-2, keepdim=True))
     return As * (1.0 / torch.where(nrm > tiny, nrm, 1.0))
 
 
 def orthonormalize(A: torch.Tensor, method: str = "cholqr2") -> torch.Tensor:
-    """Orthonormal basis of range(A) after `colscale_unit`."""
+    """Orthonormal basis of range(A) after `colscale_unit`; A (..., n, m)
+    with "cholqr2" / "cholqr3"."""
     A = colscale_unit(A)
     if method == "cholqr2":
         return cholqr2(A)[0]

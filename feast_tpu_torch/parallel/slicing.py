@@ -7,8 +7,15 @@ other (each slice's nodes may spread over a "node" mesh) and merges the
 eigenpairs, dropping near-boundary duplicates by residual;
 `feast_sliced_parallel` stacks the slices and gives each rank of a "slice"
 mesh dimension its share: the rank factors all its slices' nodes in one
-call, runs their refinement loops, and one all-gather of the eigenpairs is
-the only traffic between slice groups.
+call, runs their refinement loops together on a leading slice axis, as the
+JAX package's vmapped while_loop does, and one all-gather of the
+eigenpairs is the only traffic between slice groups.  On the card that
+loop is one program (`_SlicedProgram`): a sweep of all the rank's slices
+is two CUDA graphs, the Rayleigh-Ritz (one K2 launch for the S reduced
+matrices, per-slice stop flags and eig guards) and the node update over
+the S x nodes factor store, with one (2, S) status read a sweep; the CPU
+and the options outside `solvers.feast._graph_scope` run the slices one
+after the other (`_feast_sliced_parallel_plain`).
 
 Differences from the JAX package:
   * the merged result holds the converged pairs only (inside, residual
@@ -23,7 +30,10 @@ Differences from the JAX package:
     package); the JAX package returns it as an eigenvalue, the port drops
     it.  `per_slice` keeps every slice's full result;
   * `feast_sliced_parallel` has no `hlo_sink` (it exposed XLA's compiled
-    module);
+    module); on the card the host reads one (2, S) status tensor a sweep
+    where the JAX program reads none, and runs a failed eig guard's
+    Rayleigh-Ritz again eagerly with the full eig, that slice alone
+    (JAX's lax.cond);
   * `mixed_prec` (both drivers, passed to `feast` / `gen_feast` and to
     the stochastic count, which take it in both packages) factors the
     nodes in complex64, the panel kernel on the card, and refines each
@@ -33,12 +43,18 @@ Differences from the JAX package:
 
 from __future__ import annotations
 
+import inspect
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import contour as ct
+from ..ops import eig as eigmod
+from ..ops import lu as lumod
+from ..solvers.feast import (_PROGRAMS, FeastResult, _backend_key, _factor_into,
+                             _factor_scan, _graph_scope, _node_update_scan, _Program,
+                             _ritz_pairs, _rr_step, _status, clear_graph_cache)
 
 
 class SliceResult(NamedTuple):
@@ -160,6 +176,149 @@ def _run_slices(A, B, LU, perm, dinv, z, w, Q, contours, iters, tol, solve_dtype
     return out
 
 
+class _SlicedProgram(_Program):
+    """The sweeps of `feast_sliced_parallel`'s stacked slices for one
+    signature (`_sliced_key`), on static buffers: the JAX package's jit of
+    a vmap over the slice axis of a while_loop (feast_tpu/parallel/
+    slicing.py:114-165).
+
+    `factor` writes the S x N node matrices straight into the program's
+    slice-major store and factors it in place; `load` copies the rest of a
+    call's inputs (A, B, the start blocks, the nodes, weights and each
+    slice's circle as buffer contents, so a cached program solves any
+    interval of its shape); `run` drives the sweeps.  A sweep is two
+    steps for all S slices: `_rr` (Rayleigh-Ritz, the per-slice stop flag
+    and eig guard) and `_update` (the node update, one batch over the
+    store).  A slice that stopped keeps its state, as under vmap: the
+    device holds each slice's sweep count `it` and flag `done`, and a
+    slice is active while not done and it <= iters.  `sweeps` and
+    `fallbacks` count the last run's batched sweeps and full-eig reruns."""
+
+    def __init__(self, graphs: bool, device, *, S, N, n, solve_dtype, tol, iters,
+                 mixed_eig):
+        super().__init__(graphs, device)
+        self.tol, self.iters, self.mixed_eig = tol, iters, mixed_eig
+        self.solve_dtype = solve_dtype
+        self.sweeps = self.fallbacks = 0
+        self.buf["store"] = lumod.factor_buffer((S * N,), n, solve_dtype, device)
+        self.buf["it"] = torch.zeros(S, dtype=torch.int64, device=device)
+        self.buf["done"] = torch.zeros(S, dtype=torch.bool, device=device)
+
+    def factor(self, A, B, z):
+        """Factor the node matrices of every slice, z (S, N), in the store."""
+        store = self.buf["store"]
+        LU, perm, dinv = _factor_into(store, A, B, z.reshape(-1))
+        if LU.data_ptr() != store.data_ptr():
+            raise RuntimeError("the sliced program's factor left its store")
+        self.buf["LUb"] = LU
+        for name, t in (("permb", perm), ("invL", dinv[0]), ("invU", dinv[1])):
+            self._put(name, t)
+
+    def load(self, A, B, Q, z, w, geom):
+        for name, t in (("A", A), ("B", B), ("Q", Q), ("z", z), ("w", w), ("geom", geom)):
+            if t is not None:
+                self._put(name, t)
+
+    def _rr(self):
+        b = self.buf
+        active = ~b["done"] & (b["it"] <= self.iters)
+        Qo, Aq, Bq, lam, X, R, res, inside, worst, ok = _rr_step(
+            b["Q"], b["A"], b.get("B"), "cholqr2", "circle", b["geom"], self.mixed_eig)
+        done = inside.any(-1) & (worst < self.tol)
+        for name, t in (("lam", lam), ("X", X), ("R", R), ("res", res), ("inside", inside)):
+            keep = active.reshape((-1,) + (1,) * (t.dim() - 1))
+            if name in b:
+                b[name].copy_(torch.where(keep, t, b[name]))
+            else:
+                b[name] = t.clone()
+        b["done"].copy_(torch.where(active, done, b["done"]))
+        b["it"].add_(active.long())
+        out = {"Qo": Qo, "Aq": Aq, "status": _status(b["done"], ok | ~active)}
+        if Bq is not None:
+            out["Bq"] = Bq
+        return out
+
+    def _update(self):
+        b = self.buf
+        Qn = _node_update_scan(b["LUb"], b["permb"], b["z"], b["w"], b["X"], b["R"],
+                               b["lam"], self.solve_dtype, b["A"], b.get("B"),
+                               dinvb=(b["invL"], b["invU"]))
+        # the slices still running: not done and below the cap
+        go = ~b["done"] & (b["it"] <= self.iters)
+        b["Q"].copy_(torch.where(go[:, None, None], Qn, b["Q"]))
+        return {}
+
+    def _full_rr(self, o: dict, s: int) -> bool:
+        """Slice s's Rayleigh-Ritz again with the full eig, where its mixed
+        eig's guard failed (JAX's lax.cond, that slice alone); returns its
+        done flag, also written to the device."""
+        b = self.buf
+        self.fallbacks += 1
+        if "Bq" in o:
+            lam, Xq = eigmod._gen_eig_full(o["Aq"][s], o["Bq"][s])
+        else:
+            lam, Xq = eigmod._eig_full(o["Aq"][s])
+        lam, X, R, res = _ritz_pairs(o["Qo"][s], b["A"], b.get("B"), lam, Xq)
+        inside = ct.in_region(lam, "circle", b["geom"][:, s])
+        for name, t in (("lam", lam), ("X", X), ("R", R), ("res", res), ("inside", inside)):
+            b[name][s].copy_(t)
+        done = bool(inside.any()) and float(torch.max(torch.where(inside, res, 0.0))) < self.tol
+        b["done"][s] = done
+        return done
+
+    def run(self) -> list:
+        """Every slice's FeastResult (lam, X, res, inside, n_iter, converged),
+        as the plain loop gives it: the update of a slice's last allowed
+        sweep, or of its done sweep, is dead, and the host replays the
+        update step only while some slice runs on."""
+        b, iters = self.buf, self.iters
+        b["it"].zero_()
+        b["done"].zero_()
+        S = b["it"].shape[0]
+        done, it = [False] * S, [0] * S
+        self.sweeps = self.fallbacks = 0
+        while any(not d and i <= iters for d, i in zip(done, it)):
+            active = [not d and i <= iters for d, i in zip(done, it)]
+            o = self._step("rr")
+            flags, oks = self._read(o["status"])
+            for s in range(S):
+                if active[s]:
+                    done[s] = bool(flags[s]) if oks[s] else self._full_rr(o, s)
+                    it[s] += 1
+            self.sweeps += 1
+            if any(not d and i <= iters for d, i in zip(done, it)):
+                self._step("update")
+        return [FeastResult(b["lam"][s].clone(), b["X"][s].clone(), b["res"][s].clone(),
+                            b["inside"][s].clone(), it[s], done[s]) for s in range(S)]
+
+
+def _sliced_key(A, B, Q, z, iters, tol, mixed, graphs):
+    """The signature a sliced program and its graphs are cached under: S,
+    n, m0, nodes, dtype, B present, iters, tol, mixed and the backend
+    switches (the circles, nodes and weights are buffer contents)."""
+    return (("sliced", str(Q.device), Q.dtype) + tuple(Q.shape) + (z.shape[1], B is None,
+            iters, tol, mixed, graphs) + _backend_key())
+
+
+def _run_program(graphs, A, B, Q, z, w, contours, iters, tol, mixed):
+    """The stacked slices through the cached `_SlicedProgram` of their
+    signature (a new signature frees any cached program first, either
+    driver's, so the card holds one)."""
+    key = _sliced_key(A, B, Q, z, iters, tol, mixed, graphs)
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        clear_graph_cache()
+        S, n, m0 = Q.shape
+        prog = _PROGRAMS[key] = _SlicedProgram(
+            graphs, Q.device, S=S, N=z.shape[1], n=n,
+            solve_dtype=torch.complex64 if mixed else Q.dtype, tol=tol, iters=iters,
+            mixed_eig=eigmod._mixed_route(torch.complex128, m0, Q.device))
+    prog.factor(A, B, z)
+    geom = torch.tensor([k.params for k in contours], dtype=torch.float64)
+    prog.load(A, B, Q, z, w, geom.T[..., None].contiguous().to(Q.device))
+    return prog.run()
+
+
 def feast_sliced_parallel(A, interval: Tuple[float, float], n_slices: int, B=None, *,
                           nodes: int = 8, iters: int = 20, tol: float = 1e-12,
                           samples: int = 40, margin: float = 1.5, min_m0: int = 4,
@@ -175,9 +334,46 @@ def feast_sliced_parallel(A, interval: Tuple[float, float], n_slices: int, B=Non
     its k ranks takes n_slices / k consecutive slices, factors their
     slices x nodes matrices in one call, runs their loops, and one
     all-gather over "slice" gives every rank every slice's eigenpairs.
-    mesh=None runs every slice on this process's `device`."""
+    mesh=None runs every slice on this process's `device`.
+
+    On the card the rank's slices run as one program of CUDA graphs
+    (`_SlicedProgram`, cached with `feast_compiled`'s under
+    `solvers.clear_graph_cache`), the factor written straight into its
+    store; the CPU and the options outside `solvers.feast._graph_scope`
+    run the plain loop, the slices one after the other."""
+    return _sliced("auto", A, interval, n_slices, B, nodes=nodes, iters=iters, tol=tol,
+                   samples=samples, margin=margin, min_m0=min_m0, mesh=mesh, m0=m0,
+                   seed=seed, dedup_tol=dedup_tol, mixed_prec=mixed_prec,
+                   verbose=verbose, device=device)
+
+
+def _feast_sliced_parallel_plain(*args, **kw) -> SliceResult:
+    """`feast_sliced_parallel` through the plain loop on any device: the
+    slices one after the other, every op an eager launch, two host reads a
+    sweep (`_run_slices`).  The CPU runs it; `chip_smoke.py` holds the
+    graphs to it."""
+    return _sliced("plain", **_bind(args, kw))
+
+
+def _feast_sliced_parallel_steps(*args, **kw) -> SliceResult:
+    """`feast_sliced_parallel` through the sliced program run eagerly on any
+    device: the batched steps, static buffers and cache of the graphed
+    path, without graphs."""
+    return _sliced("steps", **_bind(args, kw))
+
+
+def _bind(args, kw) -> dict:
+    bound = inspect.signature(feast_sliced_parallel).bind(*args, **kw)
+    bound.apply_defaults()
+    return bound.arguments
+
+
+def _sliced(route, A, interval, n_slices, B, *, nodes, iters, tol, samples, margin,
+            min_m0, mesh, m0, seed, dedup_tol, mixed_prec, verbose, device):
+    """route: "auto" (the program's graphs where `_graph_scope` allows,
+    else the plain loop), "plain", or "steps" (the program without
+    graphs)."""
     from .._device import as_tensor, resolve_device
-    from ..solvers.feast import FeastResult, _factor_scan
 
     if mesh is None:
         dev = resolve_device(device)
@@ -211,11 +407,18 @@ def feast_sliced_parallel(A, interval: Tuple[float, float], n_slices: int, B=Non
     mine = contours[first:first + count]
     z = torch.stack([k.device_nodes(dt, dev) for k in mine])          # (S, N)
     w = torch.stack([k.device_weights(dt, dev) for k in mine])
-    # one factor call over slices x nodes
-    LU, perm, dinv = _factor_scan(Ad, Bd, z.reshape(-1), bool(mixed_prec))
     Q = as_tensor(X0[first:first + count], dt, dev)
-    results = _run_slices(Ad, Bd, LU, perm, dinv, z, w, Q, mine, iters, tol,
-                          torch.complex64 if mixed_prec else None)
+    if route == "auto":
+        route = "plain" if _graph_scope(dev, m0, "lu") else "graphs"
+    if route == "plain":
+        # one factor call over slices x nodes
+        LU, perm, dinv = _factor_scan(Ad, Bd, z.reshape(-1), bool(mixed_prec))
+        results = _run_slices(Ad, Bd, LU, perm, dinv, z, w, Q, mine, iters, tol,
+                              torch.complex64 if mixed_prec else None)
+        del LU, perm, dinv
+    else:
+        results = _run_program(route == "graphs", Ad, Bd, Q, z, w, mine, int(iters),
+                               float(tol), bool(mixed_prec))
 
     if mesh is not None:
         # the only traffic between slice groups: every slice's pairs

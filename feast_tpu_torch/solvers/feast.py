@@ -16,8 +16,11 @@ refinement, each residual one wide matmul over all nodes.
 
 `feast_compiled` is the JAX package's single-program loop: on the card its
 sweeps are CUDA graphs, captured once per signature and replayed, with the
-stop rules and the eig guard decided on the device (`_SweepProgram`); the
-CPU and the options `_graph_scope` names run the plain loop.
+stop rules and the eig guard decided on the device (`_SweepProgram`; under
+`mesh=` the node all-reduce is inside the update graph); the CPU and the
+options `_graph_scope` names run the plain loop.  The sweep steps take a
+leading slice axis too, which `parallel/slicing.py`'s stacked-slice
+program runs.
 
 `pencil="hermitian"` (and `hermitian=True`) reduces through the complex
 `torch.linalg.eigh` (`ops/eigh.py`); `rr="host"` solves the m0 x m0
@@ -159,19 +162,36 @@ def _shifted_single(A, B, zi):
     return A - zi * B
 
 
+def _solve_block(n: int) -> int:
+    """The diagonal-block size of the repeated solves (`lu_diag_inv`)."""
+    return 512 if n > 4096 else lumod._auto_block(n)
+
+
 def _factor_scan(A, B, z, solve_f32: bool):
     """Factor every node matrix A - z_i B, stacked on a leading node axis,
     plus the diagonal-block inverses for the repeated solves.  Each node
     matrix is formed in complex128 and cast, as in the JAX package."""
     n = A.shape[0]
-    sblock = 512 if n > 4096 else lumod._auto_block(n)
     dt = torch.complex64 if solve_f32 else A.dtype
     S = torch.empty((z.shape[0], n, n), dtype=dt, device=A.device)
     for i in range(z.shape[0]):
         S[i] = _shifted_single(A, B, z[i])
     LU, perm = lumod.lu_factor(S)
     del S
-    return LU, perm, lumod.lu_diag_inv(LU, sblock)
+    return LU, perm, lumod.lu_diag_inv(LU, _solve_block(n))
+
+
+def _factor_into(buf, A, B, z):
+    """`_factor_scan` into `buf`, a `lumod.factor_buffer` of z's length:
+    each node matrix formed in complex128 and cast into the buffer, then
+    factored in place, so the store is never held twice.  Returns (LU, a
+    view of `buf`; perm; the diagonal-block inverses).  A padded buffer
+    may be factored again: a factor leaves its padding zero."""
+    n = A.shape[0]
+    for i in range(z.shape[0]):
+        buf[i, :n, :n] = _shifted_single(A, B, z[i])
+    LU, perm = lumod.lu_factor_inplace(buf, n)
+    return LU, perm, lumod.lu_diag_inv(LU, _solve_block(n))
 
 
 def _apply_op_batch(A, B, T, z):
@@ -188,17 +208,25 @@ def _node_update_scan(LUb, permb, z, w, X, R, lam, solve_dtype, A, B,
                       refine: int = 2, dinvb=None):
     """RII update over all nodes at once.  Mixed precision: complex64
     solves, then `refine` steps of complex128 iterative refinement whose
-    residuals R - S_i T_i are one wide matmul (`_apply_op_batch`)."""
+    residuals R - S_i T_i are one wide matmul (`_apply_op_batch`).
+
+    Stacked slices: X, R (S, n, m0), lam (S, m0) and z, w (S, N) against
+    slice-major factors (S N, n, n); every solve is one batch over the
+    S N nodes, every refinement residual one matmul over S N m0 columns,
+    and each slice sums its own N nodes."""
     mixed = solve_dtype is not None and solve_dtype != R.dtype
+    if R.dim() > 2:
+        R = R[:, None].expand(z.shape + R.shape[-2:]).reshape((-1,) + R.shape[-2:])
+    zf = z.reshape(-1)
     temps = lumod.lu_solve(LUb, permb, R.to(solve_dtype) if mixed else R,
                            dinv=dinvb)
     if mixed:
         temps = temps.to(X.dtype)
         for _ in range(refine):
-            resid = R[None] - _apply_op_batch(A, B, temps, z)
+            resid = R - _apply_op_batch(A, B, temps, zf)
             temps = temps + lumod.lu_solve(LUb, permb, resid.to(solve_dtype),
                                            dinv=dinvb).to(X.dtype)
-    return _accum_update(X, temps, z, w, lam)
+    return _accum_update(X, temps.reshape(z.shape + temps.shape[-2:]), z, w, lam)
 
 
 def _hermitize(M: torch.Tensor) -> torch.Tensor:
@@ -301,8 +329,7 @@ def _factor_one(A, B, zi, solve_f32: bool, sblock: int):
 def _factor_hostloop(A, B, z, solve_f32: bool):
     """Per-node factors as a list of separate buffers."""
     n = A.shape[0]
-    sblock = 512 if n > 4096 else lumod._auto_block(n)
-    return [_factor_one(A, B, z[i], solve_f32, sblock) for i in range(z.shape[0])]
+    return [_factor_one(A, B, z[i], solve_f32, _solve_block(n)) for i in range(z.shape[0])]
 
 
 def _solve_one(LU, perm, dinv, rhs, out_dtype=None):
@@ -323,9 +350,10 @@ def _ir_resid_split(A, B, T, z, R):
 
 
 def _accum_update(X, T, z, w, lam):
-    """sum_i (X - T_i) diag(w_i / (z_i - lam))."""
-    phi = _resolvent(w[:, None], z[:, None], lam[None, :])      # (N, m0)
-    return torch.sum((X[None] - T) * phi[:, None, :], dim=0)
+    """sum_i (X - T_i) diag(w_i / (z_i - lam)), over leading slice dims:
+    X (..., n, m0), T (..., N, n, m0), z, w (..., N), lam (..., m0)."""
+    phi = _resolvent(w[..., :, None], z[..., :, None], lam[..., None, :])  # (..., N, m0)
+    return torch.sum((X[..., None, :, :] - T) * phi[..., :, None, :], dim=-3)
 
 
 def _node_update_hostloop(facts, z, w, X, R, lam, solve_dtype, A, B,
@@ -598,12 +626,13 @@ def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
     once as a CUDA graph and replayed (`_SweepProgram`).  The host reads one
     status tensor a sweep where JAX reads none; where the mixed eig's guard
     fails it runs that sweep's Rayleigh-Ritz again with the full eig (JAX's
-    lax.cond), and it replays no update for the sweep that stops.  The
+    lax.cond), and it replays no update for the sweep that stops.  Under
+    mesh= the node all-reduce is captured inside the update graph.  The
     graphs are cached for the newest signature only (`_program_key`).
     Options whose sweep reads the host take the plain loop instead, by the
-    rule of `_graph_scope` (the CPU, mesh=, pencils "qz" and "hermitian",
-    an m0 outside 2..128, eig mode "full", Schur backend "torch"); a
-    failure inside a capture raises."""
+    rule of `_graph_scope` (the CPU, pencils "qz" and "hermitian", an m0
+    outside 2..128, eig mode "full", Schur backend "torch"); a failure
+    inside a capture raises."""
     return _compiled("auto", A, X0, contour, c=c, r=r, nodes=nodes, iters=iters,
                      tol=tol, ortho=ortho, B=B, mesh=mesh, mixed_prec=mixed_prec,
                      pencil=pencil, hermitian=hermitian, node_scan=node_scan,
@@ -621,7 +650,8 @@ def _feast_compiled_plain(*args, **kw) -> FeastResult:
 def _feast_compiled_steps(*args, **kw) -> FeastResult:
     """`feast_compiled` through the sweep program run eagerly on any device:
     the steps, static buffers and cache of the graphed path, without
-    graphs (pencil "lu", no mesh)."""
+    graphs (pencil "lu"; mesh= too, its all-reduce inside the update
+    step)."""
     return _compiled("steps", **_bind(args, kw))
 
 
@@ -631,13 +661,13 @@ def _bind(args, kw) -> dict:
     return bound.arguments
 
 
-def _graph_scope(device: torch.device, m0: int, pencil: str, mesh) -> Optional[str]:
-    """None where `feast_compiled` captures its sweeps as CUDA graphs, else
-    why it runs the plain loop.  This rule decides, never a caught capture
-    error:
+def _graph_scope(device: torch.device, m0: int, pencil: str) -> Optional[str]:
+    """None where `feast_compiled` (and `feast_sliced_parallel`, pencil
+    "lu") captures its sweeps as CUDA graphs, else why it runs the plain
+    loop.  This rule decides, never a caught capture error.  mesh= is no
+    reason: the dense drivers' one collective a sweep is the node sum, an
+    NCCL all-reduce, which the update graph holds.
       - off the card there is nothing to capture;
-      - mesh=: the node sum is a collective and the ranks agree on rank 0's
-        Rayleigh-Ritz;
       - pencil "qz": ops/qz.py decides its deflations on the host;
       - pencil "hermitian": torch.linalg.eigh checks its info on the host;
       - m0 outside 2..128, eig mode "full" or Schur backend "torch": the
@@ -645,8 +675,6 @@ def _graph_scope(device: torch.device, m0: int, pencil: str, mesh) -> Optional[s
         counts."""
     if device.type != "cuda":
         return "the CPU runs the plain loop"
-    if mesh is not None:
-        return "mesh= runs the plain loop"
     if pencil != "lu":
         return f"pencil {pencil!r} reads the host in its reduced eig"
     if eigmod._SCHUR_BACKEND != "cuda" or not eigmod._mixed_route(torch.complex128, m0,
@@ -670,22 +698,24 @@ def _compiled(route, A, X0, contour, *, c, r, nodes, iters, tol, ortho, B, mesh,
     two_tier = mixed and (two_tier is None or bool(two_tier))
     iters = int(iters)
     if route == "auto":
-        route = "plain" if _graph_scope(Q.device, Q.shape[1], pencil, mesh) else "graphs"
-    elif route == "steps" and (pencil != "lu" or mesh is not None):
-        raise ValueError("the sweep program takes pencil 'lu' without mesh=")
+        route = "plain" if _graph_scope(Q.device, Q.shape[1], pencil) else "graphs"
+    elif route == "steps" and pencil != "lu":
+        raise ValueError("the sweep program takes pencil 'lu'")
     LUb, permb, dinvb = _factor_scan(A, B, z, mixed)
     if route == "plain":
         return _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour,
                              iters, tol, ortho, mixed, two_tier, pencil)
     graphs = route == "graphs"
-    key = _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs)
+    key = _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs,
+                       None if mesh is None else mesh.get_group("node"))
     prog = _PROGRAMS.get(key)
     if prog is None:
         clear_graph_cache()
         prog = _PROGRAMS[key] = _SweepProgram(
             graphs, Q.device, kind=contour.kind, params=contour.params, tol=tol,
             ortho=ortho, mixed=mixed, two_tier=two_tier,
-            mixed_eig=eigmod._mixed_route(torch.complex128, Q.shape[1], Q.device))
+            mixed_eig=eigmod._mixed_route(torch.complex128, Q.shape[1], Q.device),
+            node_sum=node_sum)
     prog.load(A, B, Q, LUb, permb, dinvb, z, w)
     del LUb, permb, dinvb
     return prog.run(iters)
@@ -756,7 +786,11 @@ def _rr_step(Q, A, B, ortho: str, kind: str, params, mixed_eig: bool):
     the reduced matrices, their eig (with mixed_eig the flagged mixed form,
     else `_reduced_eig`'s "lu" path with ok true), the Ritz pairs, the
     inside mask and the worst inside residual.  Returns (Qo, Aq, Bq, lam,
-    X, R, res, inside, worst, ok)."""
+    X, R, res, inside, worst, ok).
+
+    Stacked slices: Q (S, n, m0) gives every output a leading S (worst and
+    ok (S,), one K2 launch for the S reduced matrices on the card), and
+    `params` may hold (S, 1) tensors, one region a slice."""
     Qo = qrmod.orthonormalize(Q, method=ortho)
     Bq = None if B is None else cx.cgram(Qo, B @ Qo)
     Aq = cx.cgram(Qo, A @ Qo)
@@ -764,11 +798,16 @@ def _rr_step(Q, A, B, ortho: str, kind: str, params, mixed_eig: bool):
         lam, Xq, ok = (eigmod._eig_flagged(Aq) if Bq is None
                        else eigmod._gen_eig_flagged(Aq, Bq))
     else:
-        lam, Xq = _reduced_eig(Aq, Bq, "lu")
-        ok = torch.ones((), dtype=torch.bool, device=Q.device)
+        if Aq.dim() == 2:
+            lam, Xq = _reduced_eig(Aq, Bq, "lu")
+        else:   # one slice at a time, as the plain loop reduces them
+            lam, Xq = (torch.stack(p) for p in zip(*(
+                _reduced_eig(Aq[s], None if Bq is None else Bq[s], "lu")
+                for s in range(Aq.shape[0]))))
+        ok = torch.ones(Q.shape[:-2], dtype=torch.bool, device=Q.device)
     lam, X, R, res = _ritz_pairs(Qo, A, B, lam, Xq)
     inside = _in_mask(lam, kind, params)
-    worst = torch.max(torch.where(inside, res, 0.0))
+    worst = torch.amax(torch.where(inside, res, 0.0), dim=-1)
     return Qo, Aq, Bq, lam, X, R, res, inside, worst, ok
 
 
@@ -784,27 +823,39 @@ def _coarse_stop(worst, inside, prev, it, floor32) -> torch.Tensor:
 
 
 def _status(flag, ok) -> torch.Tensor:
-    """The (flag, ok) pair the host reads after a Rayleigh-Ritz step."""
+    """The (flag, ok) pair the host reads after a Rayleigh-Ritz step: (2,),
+    or (2, S) for stacked slices."""
     return torch.stack([flag, ok]).to(torch.int32)
 
 
-def _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs):
-    """The signature a sweep program and its graphs are cached under, as
-    jax.jit caches per static argument and shape: every value the steps
-    bake in, and every backend switch that changes the captured ops."""
-    return (str(Q.device), Q.dtype, A.shape[0], Q.shape[1], z.shape[0], B is None,
-            contour.kind, tuple(contour.params), iters, tol, ortho, mixed, two_tier,
-            graphs, eigmod._SCHUR_BACKEND, eigmod._EIG_MODE, cx._GEMM_BACKEND,
+def _backend_key() -> tuple:
+    """The four backend switches that change the captured ops."""
+    return (eigmod._SCHUR_BACKEND, eigmod._EIG_MODE, cx._GEMM_BACKEND,
             lumod._PANEL_BACKEND)
 
 
-# the sweep program of the newest signature (`_program_key`)
+def _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs,
+                 group=None):
+    """The signature a sweep program and its graphs are cached under, as
+    jax.jit caches per static argument and shape: every value the steps
+    bake in, every backend switch that changes the captured ops, and under
+    mesh= the node group whose all-reduce the update graph holds (the
+    cached program keeps the group alive, so its id is not reused)."""
+    return (str(Q.device), Q.dtype, A.shape[0], Q.shape[1], z.shape[0], B is None,
+            contour.kind, tuple(contour.params), iters, tol, ortho, mixed, two_tier,
+            graphs, None if group is None else id(group)) + _backend_key()
+
+
+# the one sweep program of the newest signature, `feast_compiled`'s
+# (`_program_key`) or `feast_sliced_parallel`'s (`parallel.slicing`): the
+# card holds at most one program and its buffers
 _PROGRAMS: dict = {}
 
 
 def clear_graph_cache():
-    """Drop the cached sweep program of `feast_compiled`: its buffers (on
-    the card a copy of the factor store), graphs and memory pool."""
+    """Drop the cached sweep program of `feast_compiled` or
+    `feast_sliced_parallel`: its buffers (on the card a copy of the factor
+    store, or the stacked slices' store itself), graphs and memory pool."""
     if any(p.graphs for p in _PROGRAMS.values()):
         torch.cuda.synchronize()
     _PROGRAMS.clear()
@@ -830,33 +881,23 @@ class _Step:
                 self.out[k].copy_(v)
 
 
-class _SweepProgram:
-    """The sweeps of `feast_compiled` for one signature, on static buffers.
+class _Program:
+    """What the sweep programs share: static buffers (`buf`), steps run
+    eagerly or captured once into a private pool and replayed (`_step`),
+    and the host's one status read a sweep (`_read`).  With `graphs`,
+    `capture_s` and `instantiate_s` time the captures and `replays` counts
+    the replays."""
 
-    `load` copies a solve's inputs into the buffers the steps read (A, B
-    and their complex64 copies, the factor, the nodes and weights, the
-    start subspace, the complex64 tier's floor); `run` drives the tiers.  A
-    sweep is two steps: Rayleigh-Ritz with the stop flag, then the node
-    update, which writes the next subspace into the state buffer
-    (`_step`).  With `graphs`, each step is captured into the program's
-    private pool on its first call, timed in `capture_s` and
-    `instantiate_s`; `replays` counts the replays, and `sweeps` holds the
-    last run's sweeps in each tier (complex64, complex128)."""
-
-    def __init__(self, graphs: bool, device, *, kind, params, tol, ortho, mixed,
-                 two_tier, mixed_eig):
+    def __init__(self, graphs: bool, device):
         self.graphs = graphs
-        self.kind, self.params, self.tol, self.ortho = kind, params, tol, ortho
-        self.mixed, self.two_tier, self.mixed_eig = mixed, two_tier, mixed_eig
         self.buf: dict = {}
         self.steps: dict = {}
         self.capture_s = self.instantiate_s = 0.0
         self.replays = 0
-        self.sweeps = (0, 0)
+        self.status = None
         if graphs:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(device)
-            self.status = torch.empty(2, dtype=torch.int32, pin_memory=True)
 
     def _put(self, name, t, dtype=None):
         buf = self.buf.get(name)
@@ -865,25 +906,11 @@ class _SweepProgram:
         else:
             buf.copy_(t)
 
-    def load(self, A, B, Q, LUb, permb, dinvb, z, w):
-        for name, t in (("A", A), ("B", B), ("Q", Q), ("LUb", LUb), ("permb", permb),
-                        ("invL", dinvb[0]), ("invU", dinvb[1]), ("z", z), ("w", w)):
-            if t is not None:
-                self._put(name, t)
-        if self.two_tier:
-            f32 = torch.complex64
-            for name, t in (("A32", A), ("B32", B), ("z32", z), ("w32", w)):
-                if t is not None:
-                    self._put(name, t, f32)
-            self._put("floor32", _coarse_floor(self.buf["A32"]))
-            if "prev" not in self.buf:
-                self.buf["prev"] = torch.empty((), dtype=torch.float64, device=A.device)
-                self.buf["c_it"] = torch.empty((), dtype=torch.int64, device=A.device)
-
     def _step(self, name: str) -> dict:
         """Run step `name` (method `_<name>`, a dict of tensors): eagerly, or
-        with graphs eagerly on its first call (that sweep's own work), then
-        captured once, then replayed with its launches counted."""
+        with graphs eagerly on its first call (that sweep's own work, and
+        under a mesh the communicator's first collective), then captured
+        once, then replayed with its launches counted."""
         step = self.steps.setdefault(name, _Step())
         if step.graph is not None:
             step.graph.replay()
@@ -913,12 +940,50 @@ class _SweepProgram:
         return graph, tally
 
     def _read(self, status: torch.Tensor):
-        """The host's one read a sweep: (flag, ok)."""
+        """The host's one read a sweep: the status tensor as a list."""
         if not self.graphs:
             return status.tolist()
+        if self.status is None:
+            self.status = torch.empty(status.shape, dtype=status.dtype, pin_memory=True)
         self.status.copy_(status, non_blocking=True)
         torch.cuda.current_stream().synchronize()
         return self.status.tolist()
+
+
+class _SweepProgram(_Program):
+    """The sweeps of `feast_compiled` for one signature, on static buffers.
+
+    `load` copies a solve's inputs into the buffers the steps read (A, B
+    and their complex64 copies, the factor, the nodes and weights, the
+    start subspace, the complex64 tier's floor); `run` drives the tiers.  A
+    sweep is two steps: Rayleigh-Ritz with the stop flag, then the node
+    update, which writes the next subspace into the state buffer; under a
+    mesh the update's node sum (`node_sum`, an all-reduce over "node") is
+    part of that step.  `sweeps` holds the last run's sweeps in each tier
+    (complex64, complex128)."""
+
+    def __init__(self, graphs: bool, device, *, kind, params, tol, ortho, mixed,
+                 two_tier, mixed_eig, node_sum):
+        super().__init__(graphs, device)
+        self.kind, self.params, self.tol, self.ortho = kind, params, tol, ortho
+        self.mixed, self.two_tier, self.mixed_eig = mixed, two_tier, mixed_eig
+        self.node_sum = node_sum
+        self.sweeps = (0, 0)
+
+    def load(self, A, B, Q, LUb, permb, dinvb, z, w):
+        for name, t in (("A", A), ("B", B), ("Q", Q), ("LUb", LUb), ("permb", permb),
+                        ("invL", dinvb[0]), ("invU", dinvb[1]), ("z", z), ("w", w)):
+            if t is not None:
+                self._put(name, t)
+        if self.two_tier:
+            f32 = torch.complex64
+            for name, t in (("A32", A), ("B32", B), ("z32", z), ("w32", w)):
+                if t is not None:
+                    self._put(name, t, f32)
+            self._put("floor32", _coarse_floor(self.buf["A32"]))
+            if "prev" not in self.buf:
+                self.buf["prev"] = torch.empty((), dtype=torch.float64, device=A.device)
+                self.buf["c_it"] = torch.empty((), dtype=torch.int64, device=A.device)
 
     def _coarse_rr(self):
         b = self.buf
@@ -931,9 +996,9 @@ class _SweepProgram:
 
     def _coarse_update(self):
         b, o = self.buf, self.steps["coarse_rr"].out
-        b["Qc"].copy_(_node_update_scan(
+        b["Qc"].copy_(self.node_sum(_node_update_scan(
             b["LUb"], b["permb"], b["z32"], b["w32"], o["X"], o["R"], o["lam"], None,
-            b["A32"], b.get("B32"), refine=0, dinvb=(b["invL"], b["invU"])))
+            b["A32"], b.get("B32"), refine=0, dinvb=(b["invL"], b["invU"]))))
         return {}
 
     def _fine_rr(self):
@@ -950,10 +1015,10 @@ class _SweepProgram:
 
     def _fine_update(self):
         b, o = self.buf, self.steps["fine_rr"].out
-        b["Q"].copy_(_node_update_scan(
+        b["Q"].copy_(self.node_sum(_node_update_scan(
             b["LUb"], b["permb"], b["z"], b["w"], o["X"], o["R"], o["lam"],
             torch.complex64 if self.mixed else None, b["A"], b.get("B"),
-            dinvb=(b["invL"], b["invU"])))
+            dinvb=(b["invL"], b["invU"]))))
         return {}
 
     def _full_rr(self, o: dict) -> bool:
@@ -990,6 +1055,9 @@ class _SweepProgram:
         done, o, it0 = False, None, it
         while not done and it <= iters:
             o = self._step("fine_rr")
+            # under a mesh every rank reads the same status: the all-reduce
+            # hands every rank the same bits, and the Rayleigh-Ritz is then
+            # replicated work on equal inputs
             flag, ok = self._read(o["status"])
             done = bool(flag) if ok else self._full_rr(o)
             if not done and it < iters:  # the last allowed sweep's update is dead

@@ -138,6 +138,22 @@ def dense_driver(driver, A, X0, B=None, Xl0=None, mesh_nodes=None, **kw):
     return out
 
 
+@case
+def compiled_routes(A, X0, **kw):
+    """feast_compiled(mesh=) through its plain loop and through its sweep
+    program run eagerly (the all-reduce inside the update step)."""
+    import importlib
+
+    import feast_tpu_torch as ft
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    mesh = ft.parallel.node_mesh(device_type="cpu")
+    out = {route: _host(fn(A, X0, mesh=mesh, device="cpu", **kw)) for route, fn in
+           (("plain", fmod._feast_compiled_plain), ("steps", fmod._feast_compiled_steps))}
+    fmod.clear_graph_cache()
+    return out
+
+
 class _Skewed:
     """Sparse products that round differently on each rank, as products
     that accumulate with atomics do on a card: the rank's result scaled by
@@ -193,20 +209,28 @@ def row_qr(a, method="cholqr2"):
 
 
 @case
-def sliced(A, interval, n_slices, B=None, parallel=False, **kw):
+def sliced(A, interval, n_slices, B=None, parallel=False, steps=False, **kw):
+    """feast_sliced on a node mesh, or feast_sliced_parallel on a slice mesh
+    (with steps, its sliced program run eagerly: each rank's slices)."""
+    import importlib
+
     import feast_tpu_torch as ft
     from torch.distributed.device_mesh import init_device_mesh
 
+    sl = importlib.import_module("feast_tpu_torch.parallel.slicing")
     world = torch.distributed.get_world_size()
     if parallel:
         mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("slice",))
-        out = ft.parallel.feast_sliced_parallel(A, interval, n_slices, B, mesh=mesh,
-                                                device="cpu", **kw)
+        fn = sl._feast_sliced_parallel_steps if steps else ft.parallel.feast_sliced_parallel
+        out = fn(A, interval, n_slices, B, mesh=mesh, device="cpu", **kw)
+        if steps:
+            ft.solvers.clear_graph_cache()
     else:
         mesh = ft.parallel.node_mesh(device_type="cpu")
         out = ft.parallel.feast_sliced(A, interval, n_slices, B, mesh=mesh, **kw)
     return {"lam": out.lam, "X": out.X, "res": out.res, "counts": np.asarray(out.counts),
-            "iters": [r.n_iter for r in out.per_slice]}
+            "iters": [r.n_iter for r in out.per_slice],
+            "converged": [r.converged for r in out.per_slice]}
 
 
 @case

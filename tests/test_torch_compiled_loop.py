@@ -12,6 +12,7 @@ patched Tensor methods stand for the capture: a host read raises.
 
 import gc
 import importlib
+import inspect
 import sys
 import weakref
 from types import SimpleNamespace
@@ -349,23 +350,38 @@ def test_cache_keeps_the_newest_signature_and_its_switches():
 @pytest.mark.parametrize("opts,graphs", [
     (dict(), True),
     (dict(device="cpu"), False),
-    (dict(mesh=object()), False),
+    (dict(mesh=object()), True),
     (dict(pencil="qz"), False),
     (dict(pencil="hermitian"), False),
     (dict(m0=1), False),
     (dict(m0=129), False),
     (dict(eig_mode="full"), False),
     (dict(schur="torch"), False),
+    (dict(sliced=True, m0=42), True),
+    (dict(sliced=True, device="cpu"), False),
+    (dict(sliced=True, mesh=object()), True),
+    (dict(sliced=True, m0=129), False),
+    (dict(sliced=True, eig_mode="full"), False),
+    (dict(sliced=True, schur="torch"), False),
 ], ids=["headline", "cpu", "mesh", "qz", "hermitian", "m0_1", "m0_129", "eig_full",
-        "schur_torch"])
+        "schur_torch", "sliced", "sliced_cpu", "sliced_slice_mesh", "sliced_m0_129",
+        "sliced_eig_full", "sliced_schur_torch"])
 def test_scope_rule(opts, graphs):
-    """Which options the graphs take on the card, and which the plain loop."""
+    """Which options the graphs take on the card, and which the plain loop,
+    for `feast_compiled` and for `feast_sliced_parallel` (the same rule at
+    pencil "lu").  A mesh is no reason for the plain loop: the rule takes
+    none (the node sum's all-reduce is captured; a "slice" mesh runs no
+    collective inside the loop)."""
+    sliced = importlib.import_module("feast_tpu_torch.parallel.slicing")
+    assert sliced._graph_scope is tfeast._graph_scope
+    assert list(inspect.signature(tfeast._graph_scope).parameters) == ["device", "m0",
+                                                                        "pencil"]
     teig.set_eig_mode(opts.get("eig_mode", "mixed"))
     teig.set_schur_backend(opts.get("schur", "cuda"))
     try:
         why = tfeast._graph_scope(torch.device(opts.get("device", "cuda")),
-                                  opts.get("m0", 48), opts.get("pencil", "lu"),
-                                  opts.get("mesh"))
+                                  opts.get("m0", 48),
+                                  "lu" if opts.get("sliced") else opts.get("pencil", "lu"))
     finally:
         teig.set_eig_mode("mixed")
         teig.set_schur_backend("cuda")

@@ -583,3 +583,81 @@ def test_eigh_cannot_be_captured(dev):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300)
     assert "capture failed:" in out.stdout, out.stdout + out.stderr
+
+
+def _same_result(a, b):
+    return (a.n_iter == b.n_iter and a.converged == b.converged
+            and all(torch.equal(x, y) for x, y in zip(a[:4], b[:4])))
+
+
+def test_sliced_graphs_equal_the_sliced_steps(dev):
+    """feast_sliced_parallel's stacked slices as CUDA graph replays equal the
+    same batched steps run eagerly on the card, bit for bit per slice, and
+    the slices run one after the other to 1e-12 relative; each batched
+    sweep is one K2 launch for all slices."""
+    import importlib
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    sl = importlib.import_module("feast_tpu_torch.parallel.slicing")
+    rng = np.random.default_rng(0)
+    n = 256
+    G = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    H = np.diag(np.arange(1.0, n + 1.0)) + 0.05 * (G + G.conj().T) / 2
+    kw = dict(nodes=16, iters=30, tol=1e-10, mixed_prec=True, device=dev)
+    fmod.clear_graph_cache()
+    graphs, k2 = [], []
+    for _ in range(2):                 # cold (capture), then warm (replays only)
+        before = schur_kernel.launches
+        graphs.append(ft.parallel.feast_sliced_parallel(H, (0.5, 24.5), 4, **kw))
+        torch.cuda.synchronize()
+        k2.append(schur_kernel.launches - before)
+    prog = next(iter(fmod._PROGRAMS.values()))
+    assert isinstance(prog, sl._SlicedProgram) and prog.graphs and prog.replays > 0
+    steps = sl._feast_sliced_parallel_steps(H, (0.5, 24.5), 4, **kw)
+    plain = sl._feast_sliced_parallel_plain(H, (0.5, 24.5), 4, **kw)
+    fmod.clear_graph_cache()
+    # one launch a batched sweep (the stochastic count and the complex128
+    # fallback of a failed guard launch none)
+    assert k2[0] == k2[1] == prog.sweeps == max(r.n_iter for r in graphs[1].per_slice)
+    for g in graphs:
+        assert all(_same_result(a, b) for a, b in zip(g.per_slice, steps.per_slice))
+    for a, b in zip(graphs[1].per_slice, plain.per_slice):
+        assert a.n_iter == b.n_iter and a.converged == b.converged
+        la, lb = np.sort(a.filtered()[0].real), np.sort(b.filtered()[0].real)
+        np.testing.assert_allclose(la, lb, rtol=1e-12, atol=0)
+    w = np.linalg.eigvalsh(H)
+    np.testing.assert_allclose(np.sort(graphs[1].lam.real), w[(w > 0.5) & (w < 24.5)],
+                               atol=1e-10)
+
+
+def test_feast_compiled_mesh_graphs_over_nccl(dev, tmp_path):
+    """feast_compiled(mesh=node_mesh()) at world size 1 over NCCL: its
+    sweeps are graph replays with the node all-reduce captured in the
+    update graph, bit for bit the plain loop under the same mesh, with as
+    many K1 and K2 launches."""
+    import importlib
+
+    import torch.distributed as dist
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    A, X0, _ = _graph_problem()
+    kw = dict(c=5.5, r=5.2, nodes=16, iters=20, tol=1e-10, mixed_prec=True, device="cuda")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = ft.parallel.node_mesh(device_type="cuda")
+        fmod.clear_graph_cache()
+        results, counts = [], []
+        for fn in (ft.feast_compiled, fmod._feast_compiled_plain, ft.feast_compiled):
+            k1, k2 = panel_lu.launches, schur_kernel.launches
+            results.append(fn(A, X0, mesh=mesh, **kw))
+            torch.cuda.synchronize()
+            counts.append((panel_lu.launches - k1, schur_kernel.launches - k2))
+        prog = next(iter(fmod._PROGRAMS.values()))
+        assert prog.graphs and prog.replays > 0
+        fmod.clear_graph_cache()
+    finally:
+        dist.destroy_process_group()
+    g, p, warm = results
+    assert counts[0] == counts[1] == counts[2] and counts[0][1] > 0
+    assert p.converged and _same_result(g, p) and _same_result(warm, p)

@@ -97,6 +97,24 @@ def test_feast_compiled_four_ranks_match_jax_mesh(ranks4, diag25):
     np.testing.assert_allclose(mixed[0]["lam"], ref.lam.numpy(), atol=1e-12)
 
 
+@pytest.mark.parametrize("mixed", [False, True], ids=["full", "two_tier"])
+def test_feast_compiled_steps_under_a_mesh_equal_the_plain_loop(ranks4, diag25, mixed):
+    """feast_compiled(mesh=)'s sweep program run eagerly, the node
+    all-reduce inside its update steps (the graphs' route on the card),
+    equals the plain loop under the same mesh bit for bit on every rank,
+    with the same n_iter; in full precision also the JAX mesh result."""
+    A, X0 = diag25
+    kw = dict(c=1.5 + 0j, r=2.0, nodes=8)
+    outs = ranks4.run("compiled_routes", A=A, X0=X0, mixed_prec=mixed, **kw)
+    for o in outs:
+        for k in ("lam", "X", "res", "inside", "n_iter", "converged"):
+            np.testing.assert_array_equal(o["steps"][k], o["plain"][k])
+    _same_on_every_rank([o["steps"] for o in outs])
+    assert outs[0]["steps"]["converged"]
+    if not mixed:
+        _against_jax(outs[0]["steps"], jt.feast_compiled(A, X0, mesh=jax_node_mesh(4), **kw))
+
+
 def test_dual_gen_feast_four_ranks_match_single(ranks4, diag25):
     A, X0 = diag25
     B = np.eye(25, dtype=np.complex128)
@@ -212,6 +230,27 @@ def test_feast_sliced_parallel_matches_feast_sliced(ranks4):
     assert par[0]["res"].max() < 1e-11
     exact = 2 - 2 * np.cos(np.arange(1, 121) * np.pi / 121)
     np.testing.assert_allclose(np.sort(par[0]["lam"].real), exact[exact < 0.2], atol=1e-9)
+
+
+def test_feast_sliced_parallel_steps_on_a_slice_mesh(ranks4):
+    """The sliced program run eagerly on each of 4 slice ranks (one slice
+    a rank, no collective inside its loop) against the slices run one
+    after the other in one process: the same sweeps and convergence per
+    slice, the merged eigenvalues to 1e-12, on every rank."""
+    H = _tie_problem(1)
+    kw = dict(nodes=8, iters=30, tol=1e-10, m0=13, seed=1)
+    par = ranks4.run("sliced", A=H, interval=(0.5, 40.5), n_slices=4, parallel=True,
+                     steps=True, **kw)
+    for o in par[1:]:
+        np.testing.assert_array_equal(o["lam"], par[0]["lam"])
+    single = ft.parallel.feast_sliced_parallel(H, (0.5, 40.5), 4, device="cpu", **kw)
+    assert par[0]["iters"] == [r.n_iter for r in single.per_slice]
+    assert par[0]["converged"] == [r.converged for r in single.per_slice]
+    np.testing.assert_allclose(np.sort(par[0]["lam"].real), np.sort(single.lam.real),
+                               rtol=1e-12, atol=0)
+    w = np.linalg.eigvalsh(H)
+    np.testing.assert_allclose(np.sort(par[0]["lam"].real), w[(w > 0.5) & (w < 40.5)],
+                               atol=1e-10)
 
 
 def _tie_problem(seed, n=40):
