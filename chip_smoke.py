@@ -119,7 +119,14 @@ Phases, each printing one JSON line:
           in-process result (sweeps, inside count, eigenvalues to 1e-10
           relative); the wall of the run and of each worker
   parallel  the mesh= layer over NCCL, one rank per card (world size 1 in
-          process on one card): feast_compiled on the headline, its sweeps
+          process on one card): first the JAX spellings (its own JSON
+          line, "parallel_surface"): orthonormalize and cholqr2 with
+          psum_axis="row" on a ("node", "row") mesh bound by bind_mesh at
+          the headline's shape (4096 x 48 complex128), gathered, against
+          the unsharded call to 1e-13 relative; cmatmul(precision=
+          "default") bit for bit cmatmul under both GEMM backends;
+          shard_nodes and replicate of a nested tuple; then
+          feast_compiled on the headline, its sweeps
           graphs with the node all-reduce captured, cold, then 3 warm calls
           in turns with its plain loop under the same mesh: bit for bit
           that loop, main's eigenvalues to 1e-12 and iterations; then
@@ -2219,6 +2226,87 @@ def counted_call(torch, calls):
     return call
 
 
+def parallel_surface(torch, ft, world, reps=2):
+    """The JAX package's spellings of the row-reduced QR, cmatmul's
+    precision and pytree sharding on the card, each held and timed on
+    this rank: orthonormalize and cholqr2 with psum_axis="row" on a
+    (1, world) ("node", "row") mesh bound by bind_mesh, on the headline's
+    shape (n = 4096, m0 = 48, complex128; orthonormalize's columns over
+    1 .. 1e-200), gathered, against the unsharded call on the whole
+    matrix to 1e-13 relative; cx.cmatmul(precision="default") bit for bit
+    cx.cmatmul under the "torch" and "cuda" GEMM backends (the latter
+    K3's launches, counted nowhere); shard_nodes and replicate of a
+    nested tuple keeping its structure.  Seconds are the best of `reps`
+    synchronized calls."""
+    from feast_tpu_torch import cx
+    from feast_tpu_torch.ops import qr
+    from feast_tpu_torch.parallel import mesh as pmesh
+
+    def best(fn):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return out, min(walls)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    n, m = 4096, 48
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    A = torch.randn((n, m), dtype=torch.complex128, device="cuda", generator=gen)
+    wide = A * torch.logspace(0, -200, m, dtype=torch.float64, device="cuda")
+    rmesh = ft.parallel.node_row_mesh(1, world, device_type="cuda")
+    out = {"shape": [n, m], "mesh": {"node": 1, "row": world}}
+    with pmesh.bind_mesh(rmesh):
+        Qb, out["orthonormalize_row_s"] = best(lambda: qr.orthonormalize(
+            ft.parallel.shard_rows(wide, rmesh), psum_axis="row"))
+        (Q2b, R2), out["cholqr2_row_s"] = best(lambda: qr.cholqr2(
+            ft.parallel.shard_rows(A, rmesh), psum_axis="row"))
+    Q, t_q = best(lambda: qr.orthonormalize(wide))
+    Q2, R2_ref = qr.cholqr2(A)
+    out["orthonormalize_s"] = t_q
+    out["orthonormalize_relerr"] = rel(pmesh.all_gather(Qb, rmesh, "row"), Q)
+    out["cholqr2_relerr"] = max(rel(pmesh.all_gather(Q2b, rmesh, "row"), Q2),
+                                rel(R2, R2_ref))
+    out["orthonormalize_orth_err"] = float(
+        (Q.mH @ Q - torch.eye(m, dtype=Q.dtype, device="cuda")).abs().max())
+    require(out["orthonormalize_relerr"] < 1e-13 and out["cholqr2_relerr"] < 1e-13
+            and not R2.is_conj(),
+            f"parallel surface: row-reduced QR against the unsharded call {out}")
+
+    a = torch.randn((16, 3968, 128), dtype=torch.complex64, device="cuda", generator=gen)
+    b = torch.randn((16, 128, 48), dtype=torch.complex64, device="cuda", generator=gen)
+    try:
+        for backend in ("torch", "cuda"):
+            cx.set_gemm_backend(backend)
+            plain, _ = best(lambda: cx.cmatmul(a, b))
+            got, out[f"cmatmul_default_{backend}_s"] = best(
+                lambda: cx.cmatmul(a, b, precision="default"))
+            require(torch.equal(got, plain),
+                    f"parallel surface: cmatmul(precision='default') differs from "
+                    f"cmatmul under the {backend!r} backend")
+    finally:
+        cx.set_gemm_backend("torch")
+    out["cmatmul_shape"] = [16, 3968, 128, 48]
+
+    z = torch.arange(world * 2, dtype=torch.float64, device="cuda").to(torch.complex128)
+    tree = (z, (z.real, None), [z * 2])
+    got = ft.parallel.shard_nodes(tree, ft.parallel.node_mesh(device_type="cuda"))
+    rep = ft.parallel.replicate({"t": tree}, ft.parallel.node_mesh(device_type="cuda"))
+    k = torch.distributed.get_rank()
+    require(isinstance(got, tuple) and got[1][1] is None and isinstance(got[2], list)
+            and torch.equal(got[0], z[2 * k:2 * k + 2])
+            and torch.equal(got[2][0], 2 * z[2 * k:2 * k + 2])
+            and list(rep) == ["t"] and rep["t"][1][1] is None
+            and torch.equal(rep["t"][1][0], z.real),
+            "parallel surface: shard_nodes / replicate lost the tuple's structure")
+    return out
+
+
 def parallel_rank(rank, world, store, refs, smi):
     """One rank of the `parallel` phase (NCCL, one card a rank): the mesh=
     calls of the slice, each checked against its single-process reference
@@ -2235,6 +2323,11 @@ def parallel_rank(rank, world, store, refs, smi):
                             world_size=world)
     try:
         mesh = ft.parallel.node_mesh(device_type="cuda")
+        t0 = time.perf_counter()
+        surface = parallel_surface(torch, ft, world)
+        surface["wall_s"] = time.perf_counter() - t0
+        if rank == 0:
+            emit({"phase": "parallel_surface", "world": world, "card": smi, **surface})
         calls = {}
         call = counted_call(torch, calls)
         parallel_compiled(torch, ft, fmod, mesh, refs, calls, call)

@@ -148,8 +148,19 @@ def set_gemm_backend(name: str):
     _GEMM_BACKEND = name
 
 
-def cmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b over broadcasting batch dims, through the selected backend."""
+_PRECISIONS = ("highest", "high", "default")
+
+
+def cmatmul(a: torch.Tensor, b: torch.Tensor, precision=None) -> torch.Tensor:
+    """a @ b over broadcasting batch dims, through the selected backend.
+
+    precision: the JAX spelling (None, "highest", "high", "default", or an
+    object such as `jax.lax.Precision.HIGHEST` whose name is one of them).
+    Every value computes at full accuracy, the JAX default HIGHEST: TF32
+    is off for the whole port (see _device), and no call switches it."""
+    name = getattr(precision, "name", precision)
+    if name is not None and str(name).lower() not in _PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of {_PRECISIONS}")
     if (_GEMM_BACKEND == "cuda" and a.dtype == torch.complex64
             and b.dtype == torch.complex64):
         if not (a.is_cuda and b.is_cuda):

@@ -7,6 +7,11 @@ Cholesky columns (a rank-deficient Gram stays finite), eps^2 substitution
 of zero diagonals in the triangular solves, and the max-abs column
 pre-scaling of `colscale_unit`; and Householder QR for subspaces whose
 Gram CholeskyQR cannot factor.
+
+`psum_axis` (the JAX spelling): A is this rank's row block of a taller
+matrix, and the Gram, the column max-abs and the squared column norms are
+reduced over that dimension of the mesh bound by
+`parallel.mesh.bind_mesh` (the TSQR pattern).  None: an unsharded A.
 """
 
 from __future__ import annotations
@@ -94,38 +99,44 @@ def _trace(G: torch.Tensor) -> torch.Tensor:
                        ).reshape(G.shape[:-2])
 
 
-def cholqr(A: torch.Tensor, shift: bool = True, reduce=None):
+def _psum(x: torch.Tensor, psum_axis) -> torch.Tensor:
+    if psum_axis is None:
+        return x
+    from ..parallel import mesh as pmesh
+
+    return pmesh.psum(x, psum_axis)
+
+
+def cholqr(A: torch.Tensor, shift: bool = True, psum_axis=None):
     """One (shifted) CholeskyQR pass: (Q, R) with A = Q R.
 
-    reduce: for A a row block of a taller matrix, the callable that sums
-    the block Grams over the row blocks (an all-reduce); the shift then uses
-    the block's own row count, as the JAX package's psum_axis does.  A may
-    carry leading batch dims, each matrix shifted by its own trace."""
+    psum_axis: A is a row block, its Gram summed over that mesh dimension;
+    the shift then uses the block's own row count, as the JAX package's
+    does.  A may carry leading batch dims, each matrix shifted by its own
+    trace."""
     n, m = A.shape[-2:]
-    G = cx.cgram(A)
-    if reduce is not None:
-        G = reduce(G)
+    G = _psum(cx.cgram(A), psum_axis)
     if shift:
         eps = torch.finfo(cx.real_dtype(A.dtype)).eps
         # shifted CholeskyQR (Fukaya et al. 2020)
         s = 11.0 * (m * n + n * (n + 1)) * eps * _trace(G.real) / m
         G = G + s[..., None, None] * torch.eye(m, dtype=G.dtype, device=G.device)
-    R = cholesky(G).mH
+    R = cholesky(G).mH.resolve_conj()
     return right_solve_upper(A, R), R
 
 
-def cholqr2(A: torch.Tensor, reduce=None):
+def cholqr2(A: torch.Tensor, psum_axis=None):
     """Shifted CholeskyQR2."""
-    Q1, R1 = cholqr(A, shift=True, reduce=reduce)
-    Q2, R2 = cholqr(Q1, shift=False, reduce=reduce)
+    Q1, R1 = cholqr(A, shift=True, psum_axis=psum_axis)
+    Q2, R2 = cholqr(Q1, shift=False, psum_axis=psum_axis)
     return Q2, R2 @ R1
 
 
-def cholqr3(A: torch.Tensor, reduce=None):
+def cholqr3(A: torch.Tensor, psum_axis=None):
     """Shifted CholeskyQR3."""
-    Q1, R1 = cholqr(A, shift=True, reduce=reduce)
-    Q2, R2 = cholqr(Q1, shift=True, reduce=reduce)
-    Q3, R3 = cholqr(Q2, shift=False, reduce=reduce)
+    Q1, R1 = cholqr(A, shift=True, psum_axis=psum_axis)
+    Q2, R2 = cholqr(Q1, shift=True, psum_axis=psum_axis)
+    Q3, R3 = cholqr(Q2, shift=False, psum_axis=psum_axis)
     return Q3, R3 @ (R2 @ R1)
 
 
@@ -163,24 +174,35 @@ def householder_qr(A: torch.Tensor):
     return Q, R
 
 
-def colscale_unit(A: torch.Tensor) -> torch.Tensor:
+def colscale_unit(A: torch.Tensor, psum_axis=None) -> torch.Tensor:
     """Scale columns to unit 2-norm with a max-abs pre-scale, so columns
-    with tiny entries do not underflow the squared-norm sum.  (..., n, m)."""
+    with tiny entries do not underflow the squared-norm sum.  (..., n, m).
+    psum_axis: A is a row block; the max-abs is the max and the squared
+    norm the sum over that mesh dimension, so each block is scaled as the
+    whole matrix would be."""
     tiny = torch.finfo(cx.real_dtype(A.dtype)).tiny
     amax = torch.amax(torch.maximum(A.real.abs(), A.imag.abs()), dim=-2, keepdim=True)
+    if psum_axis is not None:
+        from ..parallel import mesh as pmesh
+
+        amax = pmesh.pmax(amax, psum_axis)
     As = A * (1.0 / torch.where(amax > tiny, amax, 1.0))
-    nrm = torch.sqrt(torch.sum(cx.abs2(As), dim=-2, keepdim=True))
+    nrm = torch.sqrt(_psum(torch.sum(cx.abs2(As), dim=-2, keepdim=True), psum_axis))
     return As * (1.0 / torch.where(nrm > tiny, nrm, 1.0))
 
 
-def orthonormalize(A: torch.Tensor, method: str = "cholqr2") -> torch.Tensor:
+def orthonormalize(A: torch.Tensor, method: str = "cholqr2", psum_axis=None) -> torch.Tensor:
     """Orthonormal basis of range(A) after `colscale_unit`; A (..., n, m)
-    with "cholqr2" / "cholqr3"."""
-    A = colscale_unit(A)
+    with "cholqr2" / "cholqr3".  psum_axis: A is a row block (see the
+    module docstring); "householder" has no row-reduced form and raises
+    with one."""
+    if method == "householder" and psum_axis is not None:
+        raise ValueError("householder QR has no row-reduced form (psum_axis)")
+    A = colscale_unit(A, psum_axis)
     if method == "cholqr2":
-        return cholqr2(A)[0]
+        return cholqr2(A, psum_axis)[0]
     if method == "cholqr3":
-        return cholqr3(A)[0]
+        return cholqr3(A, psum_axis)[0]
     if method == "householder":
         return householder_qr(A)[0]
     raise ValueError(f"unknown method {method}")

@@ -155,6 +155,7 @@ def feast_iterative_checkpointed(
         sweeps_per_worker: int = 1,
         warm_starts: bool = True,
         chunk_checkpoints: bool = True,
+        platform: Optional[str] = None,
         device: str = "cuda",
         worker_env: Optional[dict] = None,
         verbose: bool = True,
@@ -170,7 +171,9 @@ def feast_iterative_checkpointed(
 
     amg_f32: amg_opts={"dtype": torch.float32}.  amg_damp: amg_opts
     "damp".  device: the workers' device ("cuda", or "cpu" for the plain
-    path).  Other kwargs go to feast_iterative verbatim (the JSON-
+    path).  platform: the JAX spelling; when given it sets the device by
+    the rule a worker applies to a JAX-written config ("cpu" the CPU, any
+    other the card).  Other kwargs go to feast_iterative verbatim (the JSON-
     serializable `_ALLOWED` subset).
 
     sweeps_per_worker: sweeps one worker runs before it exits, each still
@@ -193,6 +196,8 @@ def feast_iterative_checkpointed(
     Returns a FeastResult with host (CPU) tensors, n_iter = n_sweeps = the
     node sweeps run.  The run is resumable: calling again with resume=True
     (the default) continues from `checkpoint_dir/state.npz`."""
+    if platform is not None:
+        device = _worker_device({"platform": platform})
     bad = set(feast_kwargs) - _ALLOWED
     if bad:
         raise ValueError(

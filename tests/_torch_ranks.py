@@ -15,6 +15,7 @@ import multiprocessing
 import os
 import queue
 import traceback
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -257,3 +258,131 @@ def rows(A, B, X0, n_node, n_row, skew=False, **kw):
         pmesh.all_gather = gather
     out["gather_sizes"] = sizes
     return out
+
+
+@case
+def row_reduced(a, fn, n_node=1, **kw):
+    """ops.qr's `fn` with psum_axis="row" on this rank's row block of a, on
+    an (n_node, world / n_node) mesh bound by bind_mesh; every returned
+    tensor through np.asarray (which refuses a conjugate or negative bit)."""
+    import feast_tpu_torch as ft
+    from feast_tpu_torch.ops import qr
+    from feast_tpu_torch.parallel import mesh as pmesh
+
+    world = torch.distributed.get_world_size()
+    mesh = ft.parallel.node_row_mesh(n_node, world // n_node, device_type="cpu")
+    with pmesh.bind_mesh(mesh):
+        out = getattr(qr, fn)(ft.parallel.shard_rows(torch.as_tensor(a), mesh),
+                              psum_axis="row", **kw)
+    return [np.asarray(t) for t in (out if isinstance(out, tuple) else (out,))]
+
+
+class Pair(NamedTuple):
+    re: object
+    im: object
+
+
+def _tree(rank):
+    """A nested pytree of rank-dependent (8, 2) tensors."""
+    x = torch.arange(16.0, dtype=torch.float64).reshape(8, 2) + 100 * rank
+    return {"a": (x, [x.to(torch.complex128), None]), "b": Pair(x, 2 * x)}
+
+
+def _host_tree(tree):
+    from feast_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh._tree_map(lambda t: np.asarray(t), tree)
+
+
+@case
+def mesh_helpers(devices=None):
+    """parallel.mesh's helpers on a node mesh in the order `devices`: this
+    rank's position, shard_nodes / shard_rows / replicate of a tensor and
+    of a pytree, node_sum, all_reduce, gather_nodes."""
+    import feast_tpu_torch as ft
+    from feast_tpu_torch.parallel import mesh as pmesh
+
+    rank = torch.distributed.get_rank()
+    mesh = ft.parallel.node_mesh(devices=devices, device_type="cpu")
+    pos, size = pmesh._dim_rank(mesh, "node")
+    x = torch.arange(8.0, dtype=torch.float64).to(torch.complex128).reshape(8, 1)
+    mine = torch.full((2, 3), rank + 0.5j, dtype=torch.complex128)
+    return {"pos": pos, "size": size,
+            "shard_nodes": np.asarray(ft.parallel.shard_nodes(x, mesh)),
+            "replicate": np.asarray(ft.parallel.replicate(mine, mesh)),
+            "left": np.asarray(mine),
+            "node_sum": np.asarray(pmesh.node_sum(mine, mesh)),
+            "all_reduce": np.asarray(pmesh.all_reduce(mine, mesh, "node")),
+            "gather_nodes": np.asarray(pmesh.gather_nodes(mine[:1], mesh)),
+            "tree_nodes": _host_tree(ft.parallel.shard_nodes(_tree(rank), mesh)),
+            "tree_replicate": _host_tree(ft.parallel.replicate(_tree(rank), mesh))}
+
+
+@case
+def row_mesh_helpers(devices=None):
+    """shard_rows of a pytree and all_gather over "row" on a 2 x 2
+    ("node", "row") mesh in the order `devices`."""
+    import feast_tpu_torch as ft
+    from feast_tpu_torch.parallel import mesh as pmesh
+
+    rank = torch.distributed.get_rank()
+    mesh = ft.parallel.node_row_mesh(2, 2, devices=devices, device_type="cpu")
+    blocks = ft.parallel.shard_rows(_tree(rank), mesh)
+    return {"coord": tuple(mesh.get_coordinate()),
+            "tree_rows": _host_tree(blocks),
+            "gather_rows": np.asarray(pmesh.all_gather(blocks["b"].re, mesh, "row"))}
+
+
+@case
+def mesh_refusals():
+    """The messages of node_mesh / node_row_mesh for rank lists that are not
+    the whole group, and of psum_axis with no bound mesh."""
+    import feast_tpu_torch as ft
+    from feast_tpu_torch.ops import qr
+
+    world = torch.distributed.get_world_size()
+    out = []
+    for call in (lambda: ft.parallel.node_mesh(devices=[0, 1], device_type="cpu"),
+                 lambda: ft.parallel.node_mesh(devices=[0] * world, device_type="cpu"),
+                 lambda: ft.parallel.node_mesh(devices=list(range(1, world + 1)),
+                                               device_type="cpu"),
+                 lambda: ft.parallel.node_row_mesh(2, world // 2, devices=[0] * world,
+                                                   device_type="cpu"),
+                 lambda: qr.orthonormalize(torch.ones(4, 2, dtype=torch.complex128),
+                                           psum_axis="row")):
+        try:
+            call()
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+@case
+def row_ops(A, B, X, dtype="complex128"):
+    """rowsharded.row_operators on a (1, world) mesh: this rank's RowBlocks
+    of A and B and their products with X (each the whole product)."""
+    import feast_tpu_torch as ft
+    from feast_tpu_torch.parallel import rowsharded
+
+    world = torch.distributed.get_world_size()
+    mesh = ft.parallel.node_row_mesh(1, world, device_type="cpu")
+    Ab, Bb = rowsharded.row_operators(A, B, mesh, getattr(torch, dtype))
+    Xt = torch.as_tensor(X)
+    return {"r0": Ab.r0, "shape": Ab.shape, "AX": np.asarray(Ab.matvec(Xt)),
+            "BX": np.asarray(Bb.matvec(Xt)), "diag": np.asarray(Ab.diag)}
+
+
+@case
+def row_amg_apply(A, B, X, z, **build_opts):
+    """ops.amg.shifted_preconditioner on rowsharded.row_amg's hierarchy at
+    the shift z, applied to X on every rank (the whole result)."""
+    import feast_tpu_torch as ft
+    from feast_tpu_torch.ops import amg
+    from feast_tpu_torch.parallel import rowsharded
+
+    world = torch.distributed.get_world_size()
+    mesh = ft.parallel.node_row_mesh(1, world, device_type="cpu")
+    h = rowsharded.row_amg(A, B, mesh, dtype=torch.complex128, **build_opts)
+    M = amg.shifted_preconditioner(h, torch.tensor(z, dtype=torch.complex128))
+    return np.asarray(M(torch.as_tensor(X)))
