@@ -1261,7 +1261,9 @@ def traced(torch, fn, cpu=True):
     and the graph launches among them, kernels run, and [name, count, ms]
     per kernel name, most device time first.  cpu=False leaves out the
     host operators' events (the launch calls stay: they are the CUDA
-    runtime's)."""
+    runtime's).  The profiler's copies of `record_function` ranges on the
+    device's track ("gpu_user_annotation", among them the solvers'
+    "span.<name>" ranges) are no device work and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1276,6 +1278,9 @@ def traced(torch, fn, cpu=True):
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if e.device_type() == DeviceType.CUDA:
+            kind = getattr(e, "activity_type", None)
+            if (kind and "annotation" in str(kind())) or name.startswith("span."):
+                continue
             cnt, ns = by_name.get(name, (0, 0))
             by_name[name] = (cnt + 1, ns + e.duration_ns())
         elif name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch")):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import cx
+from ..utils import tracing
 from . import qr as qrmod
 
 
@@ -41,7 +42,8 @@ def _jacobi_sweeps(R: torch.Tensor, max_sweeps: int = 30):
     R = B V^H and B's columns orthogonal.
 
     B and V are rotated as one stacked (n + m, m) matrix: the same rotation
-    of the same column pair, so each element takes the same arithmetic."""
+    of the same column pair, so each element takes the same arithmetic.
+    Span: "svd.jacobi" around the sweeps, with their count ("sweeps")."""
     n, m = R.shape
     if m % 2:
         raise ValueError("pad to an even column count before calling")
@@ -50,34 +52,36 @@ def _jacobi_sweeps(R: torch.Tensor, max_sweeps: int = 30):
     eps = torch.finfo(rdt).eps
     BV = torch.cat([R, torch.eye(m, dtype=R.dtype, device=R.device)])
     it = 0
-    while True:
-        worst = []
-        for p, q in sched:
-            bp, bq = BV[:, p], BV[:, q]
-            app = torch.sum(cx.abs2(bp[:n]), dim=0)
-            aqq = torch.sum(cx.abs2(bq[:n]), dim=0)
-            apq = cx.cdot_cols(bp[:n], bq[:n])
-            absapq = cx.cabs(apq)
-            # sqrt(app) sqrt(aqq), not sqrt(app aqq), as the JAX package
-            norm_pq = torch.sqrt(app) * torch.sqrt(aqq)
-            active = absapq > eps * norm_pq * 0.1
-            tau = (aqq - app) / (2.0 * torch.where(active, absapq, 1.0))
-            sgn = torch.where(tau >= 0.0, 1.0, -1.0)
-            abs_tau = torch.abs(tau)
-            big = abs_tau > 1e12
-            tau_c = torch.where(big, 0.0, tau)
-            t = torch.where(big, sgn / (2.0 * torch.clamp(abs_tau, min=1.0)),
-                            sgn / (torch.abs(tau_c) + torch.sqrt(1.0 + tau_c * tau_c)))
-            t = torch.where(active, t, 0.0)
-            c = 1.0 / torch.sqrt(1.0 + t * t)
-            s = cx.phase(apq) * (c * t)
-            BV[:, p] = bp * c - bq * s.conj()
-            BV[:, q] = bp * s + bq * c
-            worst.append(torch.max(torch.where(
-                norm_pq > 0, absapq / torch.where(norm_pq > 0, norm_pq, 1.0), 0.0)))
-        it += 1
-        if not (float(torch.max(torch.stack(worst))) > 10.0 * eps and it < max_sweeps):
-            break
+    with tracing.span("svd.jacobi", R.device) as sp:
+        while True:
+            worst = []
+            for p, q in sched:
+                bp, bq = BV[:, p], BV[:, q]
+                app = torch.sum(cx.abs2(bp[:n]), dim=0)
+                aqq = torch.sum(cx.abs2(bq[:n]), dim=0)
+                apq = cx.cdot_cols(bp[:n], bq[:n])
+                absapq = cx.cabs(apq)
+                # sqrt(app) sqrt(aqq), not sqrt(app aqq), as the JAX package
+                norm_pq = torch.sqrt(app) * torch.sqrt(aqq)
+                active = absapq > eps * norm_pq * 0.1
+                tau = (aqq - app) / (2.0 * torch.where(active, absapq, 1.0))
+                sgn = torch.where(tau >= 0.0, 1.0, -1.0)
+                abs_tau = torch.abs(tau)
+                big = abs_tau > 1e12
+                tau_c = torch.where(big, 0.0, tau)
+                t = torch.where(big, sgn / (2.0 * torch.clamp(abs_tau, min=1.0)),
+                                sgn / (torch.abs(tau_c) + torch.sqrt(1.0 + tau_c * tau_c)))
+                t = torch.where(active, t, 0.0)
+                c = 1.0 / torch.sqrt(1.0 + t * t)
+                s = cx.phase(apq) * (c * t)
+                BV[:, p] = bp * c - bq * s.conj()
+                BV[:, q] = bp * s + bq * c
+                worst.append(torch.max(torch.where(
+                    norm_pq > 0, absapq / torch.where(norm_pq > 0, norm_pq, 1.0), 0.0)))
+            it += 1
+            if not (float(torch.max(torch.stack(worst))) > 10.0 * eps and it < max_sweeps):
+                break
+        sp.set("sweeps", it)
     return BV[:n], BV[n:]
 
 

@@ -65,6 +65,7 @@ from ..ops import eigh as eighmod
 from ..ops import lu as lumod
 from ..ops import qr as qrmod
 from ..kernels import _build
+from ..utils import tracing
 
 
 class FeastResult(NamedTuple):
@@ -167,16 +168,21 @@ def _solve_block(n: int) -> int:
     return 512 if n > 4096 else lumod._auto_block(n)
 
 
+@tracing.spanned("feast.factor", "A")
 def _factor_scan(A, B, z, solve_f32: bool):
     """Factor every node matrix A - z_i B, stacked on a leading node axis,
     plus the diagonal-block inverses for the repeated solves.  Each node
-    matrix is formed in complex128 and cast, as in the JAX package."""
+    matrix is formed in complex128 and cast, as in the JAX package.
+    Spans: "feast.factor", inside it "feast.factor.form" (the node
+    matrices) and "feast.factor.lu"."""
     n = A.shape[0]
     dt = torch.complex64 if solve_f32 else A.dtype
     S = torch.empty((z.shape[0], n, n), dtype=dt, device=A.device)
-    for i in range(z.shape[0]):
-        S[i] = _shifted_single(A, B, z[i])
-    LU, perm = lumod.lu_factor(S)
+    with tracing.span("feast.factor.form", A.device):
+        for i in range(z.shape[0]):
+            S[i] = _shifted_single(A, B, z[i])
+    with tracing.span("feast.factor.lu", A.device):
+        LU, perm = lumod.lu_factor(S)
     del S
     return LU, perm, lumod.lu_diag_inv(LU, _solve_block(n))
 
@@ -684,11 +690,13 @@ def _graph_scope(device: torch.device, m0: int, pencil: str) -> Optional[str]:
     return None
 
 
+@tracing.spanned("feast.solve", "device")
 def _compiled(route, A, X0, contour, *, c, r, nodes, iters, tol, ortho, B, mesh,
               mixed_prec, pencil, hermitian, node_scan, two_tier, tol_mode,
               device) -> FeastResult:
     """route: "auto" (graphs where `_graph_scope` allows, else the plain
-    loop), "plain", or "steps" (the sweep program without graphs)."""
+    loop), "plain", or "steps" (the sweep program without graphs).  The
+    span "feast.solve" is the root of the solve's spans."""
     if hermitian:
         pencil = "hermitian"
     A, B, Q, contour, z, w, node_sum = _prepare(A, B, X0, contour, c, r, nodes,
@@ -728,12 +736,15 @@ def _coarse_floor(A32: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.finfo(torch.float32).eps * cx.fro_norm(A32).double() / math.sqrt(n)
 
 
+@tracing.spanned("feast.loop", "Q")
 def _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour, iters, tol,
                   ortho, mixed, two_tier, pencil) -> FeastResult:
     """The loop of `_feast_compiled_plain`: each sweep's residuals read on
-    the host."""
+    the host.  Spans as `_SweepProgram.run`'s: "feast.loop" around both
+    tiers, "feast.rr" and "feast.update" around each sweep's steps."""
     kind, params = contour.kind, contour.params
     n, m0 = Q.shape
+    dev = Q.device
     it = 0
     if two_tier:
         f32 = torch.complex64
@@ -743,17 +754,22 @@ def _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour, iters, to
         floor32 = float(_coarse_floor(A32))
         Qc, prev, c_it, stop = Q.to(f32), np.inf, 0, False
         while not stop and c_it < iters:
-            Qo = qrmod.orthonormalize(Qc, method=ortho)
-            lam, X, R, res = _rayleigh_ritz(Qo, A32, B32, pencil)
-            inside = _in_mask(lam, kind, params)
+            with tracing.span("feast.rr", dev, tier="c64"):
+                Qo = qrmod.orthonormalize(Qc, method=ortho)
+                lam, X, R, res = _rayleigh_ritz(Qo, A32, B32, pencil)
+                inside = _in_mask(lam, kind, params)
             worst = float(torch.max(torch.where(inside, res, 0.0)))
             any_in = bool(inside.any())
             stop = ((c_it > 0 and worst > 0.5 * prev)
                     or (any_in and worst <= floor32)
                     or (c_it > 1 and not any_in))
-            Qc = Qo if stop else node_sum(_node_update_scan(
-                LUb, permb, z32, w32, X, R, lam, None, A32, B32, refine=0,
-                dinvb=dinvb))
+            if stop:
+                Qc = Qo
+            else:
+                with tracing.span("feast.update", dev, tier="c64"):
+                    Qc = node_sum(_node_update_scan(
+                        LUb, permb, z32, w32, X, R, lam, None, A32, B32, refine=0,
+                        dinvb=dinvb))
             prev = worst
             c_it += 1
         Q = Qc.to(A.dtype)
@@ -765,14 +781,16 @@ def _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour, iters, to
     inside = torch.zeros(m0, dtype=torch.bool, device=Q.device)
     done = False
     while not done and it <= iters:
-        Qo = qrmod.orthonormalize(Q, method=ortho)
-        lam, X, R, res = _rayleigh_ritz(Qo, A, B, pencil)
-        inside = _in_mask(lam, kind, params)
+        with tracing.span("feast.rr", dev, tier="c128"):
+            Qo = qrmod.orthonormalize(Q, method=ortho)
+            lam, X, R, res = _rayleigh_ritz(Qo, A, B, pencil)
+            inside = _in_mask(lam, kind, params)
         worst = float(torch.max(torch.where(inside, res, 0.0)))
         done = bool(inside.any()) and worst < tol
         if not done and it < iters:  # the last allowed sweep's update is dead
-            Q = node_sum(_node_update_scan(LUb, permb, z, w, X, R, lam,
-                                           solve_dtype, A, B, dinvb=dinvb))
+            with tracing.span("feast.update", dev, tier="c128"):
+                Q = node_sum(_node_update_scan(LUb, permb, z, w, X, R, lam,
+                                               solve_dtype, A, B, dinvb=dinvb))
         it += 1
     return FeastResult(lam, X, res, inside, it, done)
 
@@ -1021,9 +1039,11 @@ class _SweepProgram(_Program):
             dinvb=(b["invL"], b["invU"]))))
         return {}
 
+    @tracing.spanned("feast.eig_fallback", lambda self, o: self.buf["Q"].device)
     def _full_rr(self, o: dict) -> bool:
         """The sweep's Rayleigh-Ritz again with the full eig, where the mixed
-        eig's guard failed (JAX's lax.cond); returns done."""
+        eig's guard failed (JAX's lax.cond); returns done.  Span:
+        "feast.eig_fallback"."""
         b = self.buf
         if "Bq" in o:
             lam, Xq = eigmod._gen_eig_full(o["Aq"], o["Bq"])
@@ -1036,8 +1056,13 @@ class _SweepProgram(_Program):
         worst = float(torch.max(torch.where(inside, res, 0.0)))
         return bool(inside.any()) and worst < self.tol
 
+    @tracing.spanned("feast.loop", lambda self, iters: self.buf["Q"].device)
     def run(self, iters: int) -> FeastResult:
+        """Both tiers' sweeps.  Spans: "feast.loop" around the call, and
+        around each step (a replay, with graphs) "feast.rr" or "feast.update"
+        with the tier ("c64" or "c128"); never inside a captured step."""
         b = self.buf
+        dev = b["Q"].device
         it = c_it = 0
         if self.two_tier:
             self._put("Qc", b["Q"], torch.complex64)
@@ -1045,28 +1070,31 @@ class _SweepProgram(_Program):
             b["c_it"].zero_()
             c_it, stop, o = 0, False, None
             while not stop and c_it < iters:
-                o = self._step("coarse_rr")
+                with tracing.span("feast.rr", dev, tier="c64"):
+                    o = self._step("coarse_rr")
                 stop = bool(self._read(o["status"])[0])
                 if not stop:
-                    self._step("coarse_update")
+                    with tracing.span("feast.update", dev, tier="c64"):
+                        self._step("coarse_update")
                 c_it += 1
             b["Q"].copy_(o["Qo"] if stop else b["Qc"])
             it = max(c_it - 1, 0)  # the stopping sweep did no update
         done, o, it0 = False, None, it
         while not done and it <= iters:
-            o = self._step("fine_rr")
+            with tracing.span("feast.rr", dev, tier="c128"):
+                o = self._step("fine_rr")
             # under a mesh every rank reads the same status: the all-reduce
             # hands every rank the same bits, and the Rayleigh-Ritz is then
             # replicated work on equal inputs
             flag, ok = self._read(o["status"])
             done = bool(flag) if ok else self._full_rr(o)
             if not done and it < iters:  # the last allowed sweep's update is dead
-                self._step("fine_update")
+                with tracing.span("feast.update", dev, tier="c128"):
+                    self._step("fine_update")
             it += 1
         self.sweeps = (c_it, it - it0)
         if o is None:
             n, m0 = b["Q"].shape
-            dev = b["Q"].device
             return FeastResult(torch.zeros(m0, dtype=b["Q"].dtype, device=dev),
                                torch.zeros((n, m0), dtype=b["Q"].dtype, device=dev),
                                torch.zeros(m0, dtype=torch.float64, device=dev),

@@ -43,6 +43,7 @@ from ..ops import eig as eigmod
 from ..ops import lu as lumod
 from ..ops import qr as qrmod
 from ..ops import svd as svdmod
+from ..utils import tracing
 from .feast import _in_mask
 
 C64, C128 = torch.complex64, torch.complex128
@@ -181,14 +182,19 @@ class _Chunk(NamedTuple):
     dinv: tuple
 
 
+@tracing.spanned("nlfeast.factor", "z")
 def _factor_chunk(T, z: torch.Tensor, sl: slice, mixed: bool) -> _Chunk:
     """Evaluate T at the chunk's nodes straight into a factor buffer
-    (zero-padded for the panel kernel on the card) and factor it."""
+    (zero-padded for the panel kernel on the card) and factor it.  Spans:
+    "nlfeast.factor", inside it "nlfeast.factor.form" (T at the nodes) and
+    "nlfeast.factor.lu"."""
     dt = C64 if mixed else C128
     n = T.n
     buf = lumod.factor_buffer((z[sl].shape[0],), n, dt, z.device)
-    T.eval_nodes(z[sl], out_dtype=dt, out=buf[:, :n, :n])
-    LU, perm = lumod.lu_factor_inplace(buf, n)
+    with tracing.span("nlfeast.factor.form", z.device):
+        T.eval_nodes(z[sl], out_dtype=dt, out=buf[:, :n, :n])
+    with tracing.span("nlfeast.factor.lu", z.device):
+        LU, perm = lumod.lu_factor_inplace(buf, n)
     sblock = 512 if n > 4096 else lumod._auto_block(n)
     return _Chunk(sl, LU, perm, lumod.lu_diag_inv(LU, sblock))
 
@@ -225,23 +231,27 @@ def _filter_terms(t, z, w, X, lam, first: bool):
 
 def _moment_pair(T, chunks, z, zeta, w, X, R, lam, first, mixed, chunk):
     """Q0 = sum_i term_i and Q1 = sum_i zeta_i term_i over all nodes, from
-    the stored chunk factors, or (chunks None) factoring each chunk anew."""
+    the stored chunk factors, or (chunks None) factoring each chunk anew.
+    Span: "nlfeast.node_solve" around a chunk's solves and filter terms."""
     Q0 = torch.zeros_like(X)
     Q1 = torch.zeros_like(X)
     for i0 in range(0, z.shape[0], chunk):
         sl = slice(i0, i0 + chunk)
         ch = chunks[i0 // chunk] if chunks is not None else _factor_chunk(T, z, sl, mixed)
-        t = _node_solve(T, ch, z, X if first else R, mixed)
-        term = _filter_terms(t, z[sl], w[sl], X, lam, first)
+        with tracing.span("nlfeast.node_solve", X.device):
+            t = _node_solve(T, ch, z, X if first else R, mixed)
+            term = _filter_terms(t, z[sl], w[sl], X, lam, first)
         Q0 += term.sum(0)
         Q1 += (term * zeta[sl][:, None, None]).sum(0)
         del ch, t, term
     return Q0, Q1
 
 
+@tracing.spanned("nlfeast.extract", "Q0")
 def _extract(T, Q0, Q1, contour, scale):
     """Beyn extraction, unscaled values, residuals and the inside mask.
-    A CallableNEP forms its residuals on the host."""
+    A CallableNEP forms its residuals on the host.  Span:
+    "nlfeast.extract"."""
     mu, Xn = beyn_svd_extract(Q0, Q1)
     lam = _unscale(mu, scale)
     if isinstance(T, nepmod.CallableNEP):
@@ -255,6 +265,7 @@ def _extract(T, Q0, Q1, contour, scale):
     return Xn, Rn, lam, res, _in_mask(lam, contour.kind, contour.params)
 
 
+@tracing.spanned("nlfeast.solve", "device")
 def nlfeast(T, X0, nodes: int = 16, iters: int = 10, *,
             c: complex = 0.0 + 0.0j, r: float = 1.0,
             contour: Optional[ct.Contour] = None, tol: float = 1e-11,
@@ -268,7 +279,8 @@ def nlfeast(T, X0, nodes: int = 16, iters: int = 10, *,
     subspace.  mixed_prec (SPMF only): complex64 node factors (the panel
     kernel on the card) and complex128 refinement in SPMF form.  store=False
     (SPMF only): re-evaluate and re-factor `factor_chunk` nodes at a time in
-    every pass, so the peak holds one chunk's factors."""
+    every pass, so the peak holds one chunk's factors.  The span
+    "nlfeast.solve" is the root of the solve's spans."""
     T, X, contour, z, w = _setup(T, X0, contour, c, r, nodes, device)
     n, m0 = X.shape
     host_mode = isinstance(T, nepmod.CallableNEP)

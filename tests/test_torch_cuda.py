@@ -556,6 +556,58 @@ def test_feast_compiled_graphs_with_the_matrix_product_kernel(dev):
         assert torch.equal(a, b)
 
 
+def test_spans_on_the_graphs_route(dev):
+    """The solvers' spans on the graphs route at n = 4096 (the headline
+    problem: diag(1..n) + 0.05 complex noise, c = 20, r = 22, m0 = 48),
+    traced by the profiler on a warm call: every span has its device
+    seconds, the Rayleigh-Ritz and update spans are the call's replays, one
+    each, and each span's host start is within 0.5 ms of its "span.<name>"
+    range in the profiler's events."""
+    import collections
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from feast_tpu_torch.utils import tracing
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    n, m0 = 4096, 48
+    rng = np.random.default_rng(0)
+    A = np.diag(np.arange(1.0, n + 1.0)).astype(np.complex128)
+    A += 0.05 * (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+    X0 = rng.standard_normal((n, m0)) + 1j * rng.standard_normal((n, m0))
+    At, Xt = torch.as_tensor(A, device=dev), torch.as_tensor(X0, device=dev)
+    kw = dict(c=20.0, r=22.0, nodes=16, iters=20, tol=1e-10, mixed_prec=True, device=dev)
+    fmod.clear_graph_cache()
+    tracing.clear()
+    try:
+        ft.feast_compiled(At, Xt, **kw)             # captures the graphs
+        torch.cuda.synchronize()
+        assert tracing.spans() == []
+        prog = next(iter(fmod._PROGRAMS.values()))
+        before = prog.replays
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = ft.feast_compiled(At, Xt, **kw)
+            torch.cuda.synchronize()
+        replays = prog.replays - before
+        recs = tracing.spans()
+    finally:
+        tracing.clear()
+        fmod.clear_graph_cache()
+    assert prog.graphs and res.converged
+    names = collections.Counter(r["name"] for r in recs)
+    assert names["feast.solve"] == names["feast.factor"] == names["feast.loop"] == 1
+    assert names["feast.rr"] + names["feast.update"] == replays > 0
+    for r in recs:
+        assert r["device_s"] is not None and r["device_s"] >= 0, r["name"]
+    starts = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("span.") and e.device_type() == torch.autograd.DeviceType.CPU:
+            starts[e.name()[len("span."):]].append(e.start_ns())
+    for r in recs:
+        assert min(abs(s - r["t0_ns"]) for s in starts[r["name"]]) < 5e5, r["name"]
+
+
 def test_eigh_cannot_be_captured(dev):
     """Why pencil "hermitian" runs feast_compiled's plain loop: the card's
     torch.linalg.eigh reads its info on the host, which invalidates a
