@@ -14,7 +14,10 @@ Phases, each printing one JSON line:
           against its plain PyTorch version on 16 slabs of (4096, 128)
           complex64 at j0 = 0 and 1920; whole factors at n = 1024 and 4096
           (16 nodes); timings over 8 panel positions of an n = 4096 factor,
-          with torch.linalg.lu_factor as a library yardstick; the zero-padded
+          with torch.linalg.lu_factor as a library yardstick; the row swap
+          kernel (csrc/row_swap.cu) at every panel position of that factor
+          on K1's permutation, bit for bit its plain version (the gather),
+          timed beside it and its bound by bytes; the zero-padded
           route at the nonlinear path's n = 9956 (padded to 9,984, 4 nodes)
           bit for bit against the plain version on the padded matrix, and
           its launches timed at the first and the last two panels; the same
@@ -359,6 +362,8 @@ def phase_k1(torch, panel_lu, dev):
                                            "bound_ms")})
     del Afull
     torch.cuda.empty_cache()
+    out["row_swap"] = row_swap_timing(torch, panel_lu, dev, gen, B, n, b)
+    torch.cuda.empty_cache()
     out["padded_gun"] = k1_padded(torch, panel_lu, dev, gen)
     # the unstructured phase's coarse level: 447 columns, one node a launch
     out["padded_coarse_447"] = k1_padded(torch, panel_lu, dev, gen, B=1, n=447)
@@ -398,6 +403,41 @@ def panel_timing(torch, panel_lu, A, j0, b=128):
     bms, bby = bound_ms(nbytes, Bsz * panel_flops(n, b, j0))
     return {"kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": bms, "bound_by": bby}
+
+
+def row_swap_timing(torch, panel_lu, dev, gen, B, n, b):
+    """The row swap kernel (csrc/row_swap.cu) at the factor's shape, B x n,
+    at every panel position, on K1's own permutation of a random slab:
+    bit for bit its plain version (the gather of every row >= j), then
+    kernel and plain ms beside the bound by bytes (each moved row's n - b
+    outside entries read and written once, and the b pivot rows' perm)."""
+    from feast_tpu_torch.ops import row_swap
+
+    A = torch.randn((B, n, n), dtype=torch.complex64, device=dev, generator=gen)
+    keys = ("j0", "moved_rows", "kernel_ms", "plain_ms", "bound_ms")
+    rows = {k: [] for k in keys}
+    for j0 in range(0, n, b):
+        _, pb, _ = panel_lu.panel_factor(A[:, :, j0:j0 + b].clone(), j0)
+        moved = torch.zeros((), dtype=torch.int64, device=dev)
+        want = A.clone()
+        row_swap.apply_panel_perm_plain(want, pb, j0, b)
+        row_swap.apply_panel_perm(A, pb, j0, b, moved)
+        torch.cuda.synchronize()
+        require(torch.equal(A, want), f"row_swap j0={j0}: not bit-equal to the gather")
+        del want
+        m = int(moved)
+        nbytes = 2 * m * (n - b) * 8 + B * b * 4
+        for k, v in zip(keys, (j0, m,
+                               cuda_ms(lambda: row_swap.apply_panel_perm(A, pb, j0, b), 5),
+                               cuda_ms(lambda: row_swap.apply_panel_perm_plain(A, pb, j0, b), 5),
+                               bound_ms(nbytes, 0)[0])):
+            rows[k].append(v)
+    del A
+    out = {"batch": B, "n": n, "b": b, "bit_equal": True, **rows}
+    out.update({f"mean_{k}": float(np.mean(rows[k])) for k in keys[1:]})
+    out["moved_share_pct"] = 100.0 * sum(rows["moved_rows"]) / (
+        B * sum(n - j0 for j0 in rows["j0"]))
+    return out
 
 
 GUN_N, GUN_M0 = 9956, 84

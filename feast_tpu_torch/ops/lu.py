@@ -189,9 +189,15 @@ def factor_buffer(batch, n: int, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.zeros(tuple(batch) + (n_pad, n_pad), dtype=dtype, device=device)
 
 
-def lu_factor_inplace(buf: torch.Tensor, n: int):
+def lu_factor_inplace(buf: torch.Tensor, n: int, span=None):
     """Factor a `factor_buffer` whose leading n x n blocks hold the
     matrices; returns (LU, perm) of those, LU a view of `buf`.
+
+    span: a `utils.tracing` span handle around the call, or None.  On the
+    kernel route, while spans record, it gets `moved_rows`, the rows the
+    row swaps moved (a device count, resolved by `tracing.spans()`), and
+    `gathered_rows`, the rows a gather of every row >= j a panel would
+    rewrite (sum over panels and matrices of n_pad - j).
 
     The route is the one `factor_buffer` chose, read from the buffer's
     shape, so a backend switched in between changes nothing: a padded
@@ -217,7 +223,15 @@ def lu_factor_inplace(buf: torch.Tensor, n: int):
     if buf.shape[-1] != n or (n % 128 == 0 and _kernel_route(buf.dtype, buf.device)):
         from . import panel_lu
 
-        LU, perm = panel_lu.lu_factor_panel(buf, inplace=True)
+        moved = None
+        if span is not None and span.active:
+            n_pad, block = buf.shape[-1], 128
+            matrices = buf.numel() // (n_pad * n_pad)
+            moved = torch.zeros((), dtype=torch.int64, device=buf.device)
+            span.set("moved_rows", moved)
+            span.set("gathered_rows",
+                     matrices * sum(n_pad - j for j in range(0, n_pad, block)))
+        LU, perm = panel_lu.lu_factor_panel(buf, inplace=True, moved=moved)
         return LU[..., :n, :n], perm[..., :n]
     return _lu_factor_plain(buf, _auto_block(n), inplace=True)
 
@@ -277,7 +291,8 @@ def lu_factor(A: torch.Tensor, block: int = 0, loop: str = "auto"):
                      "expected 'auto', 'unrolled', 'fori' or 'pallas'")
 
 
-# The row gathers and trailing updates of a factor run over chunks of its
+# The plain loop's row gathers and trailing updates (and the panel route's
+# trailing products under the "cuda" gemm backend) run over chunks of the
 # batch of at most this many bytes of matrices, so that their temporaries
 # stay a fraction of a large store (the stacked slices' 64 node matrices
 # of n = 4096: 8.6 GB in complex64); every batch of one solve's nodes at

@@ -16,9 +16,9 @@ its launch plan on the host (cluster size, sub-panel width, shared memory)
 and `card_plan` asks the built kernel for the plan it takes on this card.
 
 `lu_factor_panel` mirrors `lu_factor_pallas`: per panel one kernel call,
-the panel's row permutation applied to the other columns as one gather (by
-chunks of a batch above 4 GiB, `lu.batch_chunks`),
-U12 = invL11 @ A12 and the trailing update as matmuls.
+the panel's row permutation applied to the other columns on the rows it
+moves (`row_swap`, the kernel `csrc/row_swap.cu`), U12 = invL11 @ A12,
+and the trailing update accumulated in place by one matrix product.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch
 
 from .. import cx
 from ..kernels import _build
+from . import row_swap
 from .lu import _swap_rows, batch_chunks
 
 # Launches of the CUDA kernel (plain-version calls do not count; a graph's
@@ -182,13 +183,22 @@ def panel_factor_plain(slab: torch.Tensor, j0: int):
 
 
 def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor,
-                    inplace: bool = False):
+                    inplace: bool = False, moved: torch.Tensor = None):
     """Blocked LU with partial pivoting through `panel_factor`, over leading
     batch dims; n % block == 0.  Same contract as `lu.lu_factor`.
 
     panel: the panel step; `panel_factor_plain` runs the plain version on
     any device (to hold the kernel against it).  inplace: factor A itself
-    (contiguous) instead of a copy."""
+    (contiguous) instead of a copy.  moved: an int64 0-d tensor on A's
+    device that the row swaps add their moved rows to (`row_swap`).
+
+    Each panel works on the whole batch in place: the panel step, its row
+    swaps on the rows they move (`row_swap.apply_panel_perm`), U12 =
+    invL11 @ A12, and the trailing update accumulated by the matrix product
+    itself, A22 += -1 * L21 @ U12 (beta = 1: no product temporary, no
+    separate subtraction).  Under `cx.set_gemm_backend("cuda")` the trailing
+    product is K3's, then subtracted, by chunks of the batch
+    (`lu.batch_chunks`) that keep its temporary below 4 GiB."""
     n = A.shape[-1]
     if A.shape[-2] != n or n % block != 0:
         raise ValueError(f"lu_factor_panel needs square (..., n, n) with "
@@ -198,23 +208,20 @@ def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor,
     batch = A.shape[:-2]
     A3 = A.reshape(-1, n, n) if inplace else A.reshape(-1, n, n).clone()
     perm = torch.arange(n, device=A.device).repeat(A3.shape[0], 1)
+    product_then_subtract = cx._GEMM_BACKEND == "cuda" and A3.dtype == torch.complex64
     for j in range(0, n, block):
         e = j + block
         _, pb, invL = panel(A3[:, :, j:e], j)
-        pb = pb.long()
-        # the panel's swaps touch rows >= j only: one gather of those rows
-        # applies them to every column outside the slab
-        idx = (pb[:, j:] - j)[:, :, None]
-        perm = torch.gather(perm, 1, pb)
-        # the gathers and the trailing update by chunks of the batch
-        # (`lu.batch_chunks`): their temporaries stay below 4 GiB
-        for c in batch_chunks(A3):
-            Ac, ic = A3[c], idx[c]
-            if j > 0:
-                Ac[:, j:, :j] = torch.gather(Ac[:, j:, :j], 1, ic.expand(-1, -1, j))
-            if e < n:
-                Ac[:, j:, e:] = torch.gather(Ac[:, j:, e:], 1, ic.expand(-1, -1, n - e))
-                U12 = cx.cmatmul(invL[c], Ac[:, j:e, e:])
-                Ac[:, j:e, e:] = U12
-                Ac[:, e:, e:] -= cx.cmatmul(Ac[:, e:, j:e], U12)
+        row_swap.apply_panel_perm(A3, pb, j, block, moved)
+        perm = torch.gather(perm, 1, pb.long())
+        if e < n:
+            # the product's temporary goes with the statement: no two panels'
+            # U12 are ever held at once
+            A3[:, j:e, e:] = cx.cmatmul(invL, A3[:, j:e, e:])
+            L21, U12 = A3[:, e:, j:e], A3[:, j:e, e:]
+            if product_then_subtract:
+                for c in batch_chunks(A3):
+                    A3[c, e:, e:].sub_(cx.cmatmul(L21[c], U12[c]))
+            else:
+                A3[:, e:, e:].baddbmm_(L21, U12, alpha=-1)
     return A3.reshape(batch + (n, n)), perm.reshape(batch + (n,))

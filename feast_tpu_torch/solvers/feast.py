@@ -172,18 +172,20 @@ def _solve_block(n: int) -> int:
 def _factor_scan(A, B, z, solve_f32: bool):
     """Factor every node matrix A - z_i B, stacked on a leading node axis,
     plus the diagonal-block inverses for the repeated solves.  Each node
-    matrix is formed in complex128 and cast, as in the JAX package.
+    matrix is formed in complex128 and cast into a `lumod.factor_buffer`,
+    as in the JAX package, and factored there in place: LU is a view of
+    that buffer, and the node matrices are never held twice.
     Spans: "feast.factor", inside it "feast.factor.form" (the node
-    matrices) and "feast.factor.lu"."""
+    matrices) and "feast.factor.lu" (with the row swaps' `moved_rows` and
+    `gathered_rows` on the kernel route, `lumod.lu_factor_inplace`)."""
     n = A.shape[0]
     dt = torch.complex64 if solve_f32 else A.dtype
-    S = torch.empty((z.shape[0], n, n), dtype=dt, device=A.device)
+    S = lumod.factor_buffer(z.shape, n, dt, A.device)
     with tracing.span("feast.factor.form", A.device):
         for i in range(z.shape[0]):
-            S[i] = _shifted_single(A, B, z[i])
-    with tracing.span("feast.factor.lu", A.device):
-        LU, perm = lumod.lu_factor(S)
-    del S
+            S[i, :n, :n] = _shifted_single(A, B, z[i])
+    with tracing.span("feast.factor.lu", A.device) as sp:
+        LU, perm = lumod.lu_factor_inplace(S, n, span=sp)
     return LU, perm, lumod.lu_diag_inv(LU, _solve_block(n))
 
 

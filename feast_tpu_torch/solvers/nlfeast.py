@@ -193,8 +193,8 @@ def _factor_chunk(T, z: torch.Tensor, sl: slice, mixed: bool) -> _Chunk:
     buf = lumod.factor_buffer((z[sl].shape[0],), n, dt, z.device)
     with tracing.span("nlfeast.factor.form", z.device):
         T.eval_nodes(z[sl], out_dtype=dt, out=buf[:, :n, :n])
-    with tracing.span("nlfeast.factor.lu", z.device):
-        LU, perm = lumod.lu_factor_inplace(buf, n)
+    with tracing.span("nlfeast.factor.lu", z.device) as sp:
+        LU, perm = lumod.lu_factor_inplace(buf, n, span=sp)
     sblock = 512 if n > 4096 else lumod._auto_block(n)
     return _Chunk(sl, LU, perm, lumod.lu_diag_inv(LU, sblock))
 

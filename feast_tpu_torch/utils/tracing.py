@@ -102,6 +102,7 @@ class _Off:
     """The handle of a span that records nothing."""
 
     __slots__ = ()
+    active = False
 
     def __enter__(self):
         return self
@@ -120,6 +121,7 @@ class _Span:
     """An active span: its record, and its CUDA events until `spans()`."""
 
     __slots__ = ("rec", "device", "events", "offset", "t0", "rf")
+    active = True
 
     def __init__(self, name: str, device, attrs: dict):
         self.rec = {"name": name, "id": next(_ids), "parent": None, "solve": None,
@@ -133,7 +135,8 @@ class _Span:
         self.events = None
 
     def set(self, key, value):
-        """Attach an attribute to the record."""
+        """Attach an attribute to the record.  A tensor (a count the device
+        keeps) is read by `spans()`, after its synchronisation."""
         self.rec["attrs"][key] = value
 
     def _event(self):
@@ -186,7 +189,8 @@ class _Span:
 
 def span(name: str, device=None, **attrs):
     """A span named `name` around a block; yields a handle whose
-    `set(key, value)` attaches an attribute:
+    `set(key, value)` attaches an attribute and whose `active` says whether
+    it records:
 
         with tracing.span("feast.factor", A.device):
             ...
@@ -261,20 +265,25 @@ def spans() -> list:
                                 (the card's waits on the host included);
                                 None on the CPU or where an end fell inside
                                 a graph capture
-      attrs                     the attributes given or set
+      attrs                     the attributes given or set, a tensor
+                                set as one read as its Python number
 
-    Synchronises once where CUDA events are pending, resolves them and
-    drops them.  The records stay until `clear()`, or until the first
-    root span of the next session."""
+    Synchronises once where CUDA events or tensors on a card are pending,
+    resolves them and drops them.  The records stay until `clear()`, or
+    until the first root span of the next session."""
     pending = [s for s in _records if s.events is not None]
-    if pending:
-        for dev in {s.device for s in pending}:
-            torch.cuda.synchronize(dev)
-        for s in pending:
-            e0, e1 = s.events
-            if e0 is not None and e1 is not None:
-                s.rec["device_s"] = e0.elapsed_time(e1) / 1e3
-            s.events = None
+    counts = [(s.rec["attrs"], k, v) for s in _records
+              for k, v in s.rec["attrs"].items() if isinstance(v, torch.Tensor)]
+    devices = {s.device for s in pending} | {v.device for _, _, v in counts if v.is_cuda}
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    for s in pending:
+        e0, e1 = s.events
+        if e0 is not None and e1 is not None:
+            s.rec["device_s"] = e0.elapsed_time(e1) / 1e3
+        s.events = None
+    for attrs, k, v in counts:
+        attrs[k] = v.item()
     return [dict(s.rec, attrs=dict(s.rec["attrs"])) for s in _records]
 
 

@@ -14,7 +14,7 @@ import torch
 import feast_tpu_torch as ft
 from feast_tpu_torch import cx
 from feast_tpu_torch.ops import (cmatmul_kernel, dia_kernel, lu, panel_lu,
-                                 schur_kernel, sparse)
+                                 row_swap, schur_kernel, sparse)
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +101,80 @@ def test_lu_factor_dispatches_to_panel_kernel(dev):
         assert float(err) / float(A[i].abs().max()) < 2e-5   # ~ n eps32
     LUp, permp = panel_lu.lu_factor_panel(A, panel=panel_lu.panel_factor_plain)
     assert torch.equal(perm, permp)
+
+
+def _panel_perm(rng, batch, n, j, b=128):
+    """A panel's row permutation as K1 composes it: b swaps of pivot row
+    g = j + k with a row p >= g; the first pivot keeps its row, the second
+    takes one of the panel's own rows, the third the bottom row."""
+    perm = np.tile(np.arange(n), (batch, 1))
+    for m in range(batch):
+        for k in range(b):
+            g = j + k
+            p = {0: g, 1: min(g + 5, j + b - 1), 2: n - 1}.get(k, rng.integers(g, n))
+            perm[m, [g, p]] = perm[m, [p, g]]
+    return perm
+
+
+@pytest.mark.parametrize("n,batch", [(256, 1), (256, 3), (256, 16), (256, 64),
+                                     (4224, 1), (4224, 3), (4224, 16), (4224, 64),
+                                     (10240, 1)])
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_row_swap_kernel_is_the_gather(dev, n, batch, where):
+    """The row swap kernel is bit for bit its plain version (the gather of
+    every row >= j) on the columns outside the panel, leaves the panel's
+    columns alone, and counts the rows the permutation moves (4224: the
+    padded 4100)."""
+    b = 128
+    j = {"first": 0, "middle": (n // b // 2) * b, "last": n - b}[where]
+    rng = np.random.default_rng(n + batch + j)
+    perm = _panel_perm(rng, batch, n, j, b)
+    pt = torch.as_tensor(perm, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(n + batch)
+    A = torch.randn((batch, n, n), dtype=torch.complex64, device=dev, generator=g)
+    want = A.clone()
+    row_swap.apply_panel_perm_plain(want, pt, j, b)
+    moved = torch.zeros((), dtype=torch.int64, device=dev)
+    before = row_swap.launches
+    row_swap.apply_panel_perm(A, pt, j, b, moved)
+    torch.cuda.synchronize()
+    assert row_swap.launches - before == 1
+    assert torch.equal(A, want)
+    assert int(moved) == int((perm != np.arange(n)).sum())
+
+
+def test_factor_of_a_node_batch_in_place(dev):
+    """One `lu_factor_inplace` of a 16 x 4096 batch in its buffer, under a
+    recording span: 32 K1 launches and 32 row swap launches, each in its
+    own tally; the peak memory of the factor stays under the store plus 5%
+    (no copy of the store, no (n - j)^2 temporaries); the span's moved rows
+    at most 2b a panel and matrix, of gathered rows 16 sum (n - j)."""
+    from feast_tpu_torch.utils import tracing
+
+    B, n = 16, 4096
+    lu.lu_factor(torch.randn((2, 256, 256), dtype=torch.complex64, device=dev))  # cuBLAS up
+    buf = lu.factor_buffer((B,), n, torch.complex64, dev)
+    g = torch.Generator(device=dev).manual_seed(16)
+    buf.copy_(torch.randn(buf.shape, dtype=buf.dtype, device=dev, generator=g))
+    store = buf.numel() * buf.element_size()
+    k1, swaps = panel_lu.launches, row_swap.launches
+    tracing.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    try:
+        with tracing.recording(), tracing.span("lu", dev) as sp:
+            LU, perm = lu.lu_factor_inplace(buf, n, span=sp)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        attrs = tracing.spans()[0]["attrs"]
+    finally:
+        tracing.clear()
+    assert panel_lu.launches - k1 == 32 and row_swap.launches - swaps == 32
+    assert LU.data_ptr() == buf.data_ptr()
+    assert peak - base <= 0.05 * store, (peak - base) / store
+    assert attrs["gathered_rows"] == B * sum(n - j for j in range(0, n, 128))
+    assert 0 < attrs["moved_rows"] <= 2 * 128 * 32 * B
 
 
 @pytest.mark.parametrize("n", [2, 16, 48])

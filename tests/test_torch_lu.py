@@ -10,7 +10,7 @@ from feast_tpu import cx as jcx
 from feast_tpu.ops import lu as jlu
 from feast_tpu.ops import pallas_lu
 from feast_tpu_torch.ops import lu as tlu
-from feast_tpu_torch.ops import panel_lu
+from feast_tpu_torch.ops import panel_lu, row_swap
 
 torch.set_num_threads(2)
 
@@ -128,3 +128,101 @@ def test_panel_checks_shapes():
         panel_lu.panel_factor(torch.zeros((1, 256, 129), dtype=torch.complex64), 0)
     with pytest.raises(ValueError, match="j0"):
         panel_lu.panel_factor(torch.zeros((1, 64, 32), dtype=torch.complex64), 40)
+
+
+def _panel_perm(rng, batch, n, j, b):
+    """A panel's row permutation as the panel kernel composes it: b swaps of
+    pivot row g = j + k with a row p >= g; the first pivot keeps its row,
+    the second takes one of the panel's own rows, the third the bottom row."""
+    perm = np.tile(np.arange(n), (batch, 1))
+    for m in range(batch):
+        for k in range(b):
+            g = j + k
+            p = {0: g, 1: min(g + 5, j + b - 1), 2: n - 1}.get(k, rng.integers(g, n))
+            perm[m, [g, p]] = perm[m, [p, g]]
+    return torch.as_tensor(perm, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("n,b", [(256, 128), (384, 128), (96, 32)])
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_row_swap_plain_is_the_row_gather(batch, n, b, where):
+    """The row swaps' plain version against A[perm] in the columns outside
+    the panel (the panel's own columns untouched), and its count of the rows
+    that moved against the permutation's, at most 2b."""
+    j = {"first": 0, "middle": (n // b // 2) * b, "last": n - b}[where]
+    rng = np.random.default_rng(n + batch + j)
+    perm = _panel_perm(rng, batch, n, j, b)
+    A = torch.as_tensor(_rand(rng, batch, n, n), dtype=torch.complex64)
+    got = A.clone()
+    moved = torch.zeros((), dtype=torch.int64)
+    row_swap.apply_panel_perm(got, perm, j, b, moved)          # CPU: the plain version
+    want = torch.stack([A[m][perm[m].long()] for m in range(batch)])
+    want[:, :, j:j + b] = A[:, :, j:j + b]
+    assert torch.equal(got, want)
+    count = int((perm != torch.arange(n, dtype=torch.int32)).sum())
+    assert int(moved) == count <= 2 * b * batch
+
+
+@pytest.mark.parametrize("route", ["plain", "panel"])
+def test_factor_scan_factors_its_own_buffer(monkeypatch, route):
+    """`_factor_scan` forms the node matrices in a factor buffer and factors
+    them there: the LU and perm of `lu_factor` on a copy of the stacked node
+    matrices, to n eps32, and its LU a view of that buffer.  "panel" sends
+    complex64 on the CPU down the kernel route (zero-padded to 256, the
+    panel step's and the row swaps' plain versions)."""
+    import importlib
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    if route == "panel":
+        monkeypatch.setattr(tlu, "_kernel_route", lambda dtype, device: dtype == torch.complex64)
+    made, factor_buffer = [], tlu.factor_buffer
+
+    def recorded(*a, **k):
+        made.append(factor_buffer(*a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(tlu, "factor_buffer", recorded)
+    n = 200
+    rng = np.random.default_rng(11)
+    A = torch.as_tensor(_rand(rng, n, n))
+    z = torch.as_tensor(_rand(rng, 4))
+    LU, perm, _ = fmod._factor_scan(A, None, z, True)
+    S = torch.stack([fmod._shifted_single(A, None, zi) for zi in z]).to(torch.complex64)
+    LUr, permr = tlu.lu_factor(S)
+    assert LU.shape == (4, n, n) and len(made) == 1
+    assert made[0].shape[-1] == (256 if route == "panel" else n)
+    assert LU.untyped_storage().data_ptr() == made[0].untyped_storage().data_ptr()
+    assert torch.equal(perm, permr)
+    assert float((LU - LUr).abs().max() / LUr.abs().max()) <= n * 1.2e-7
+
+
+def test_accumulating_panel_factor_matches_pallas_interpret_batched():
+    """The panel route's trailing update accumulated by the matrix product
+    (A22 += -1 * L21 @ U12) and its row swaps on the moved rows, over a
+    batch of two, each matrix against the JAX panel kernel in interpret
+    mode within `test_lu_factor_panel_plain_matches_pallas_interpret`'s
+    tolerance; the moved rows counted against the permutations."""
+    n, block = 96, 32
+    rng = np.random.default_rng(12)
+    A = _rand(rng, 2, n, n)
+    moved = torch.zeros((), dtype=torch.int64)
+    pbs = []
+    step = panel_lu.panel_factor_plain
+
+    def panel(slab, j0):
+        out = step(slab, j0)
+        pbs.append((j0, out[1].clone()))
+        return out
+
+    LUt, pt = panel_lu.lu_factor_panel(torch.as_tensor(A, dtype=torch.complex64),
+                                       block=block, panel=panel, moved=moved)
+    for m in range(2):
+        LUj, pj = pallas_lu.lu_factor_pallas(jcx.from_numpy(A[m], np.float32),
+                                             block=block, interpret=True)
+        np.testing.assert_array_equal(pt[m].numpy(), np.asarray(pj))
+        LUj = _np(LUj)
+        assert np.abs(LUt[m].numpy() - LUj).max() / np.abs(LUj).max() < n * 1.2e-7 * 4
+    count = sum(int((pb[:, j0:] != torch.arange(j0, n, dtype=pb.dtype)).sum())
+                for j0, pb in pbs)
+    assert int(moved) == count > 0

@@ -323,3 +323,52 @@ def test_spanned_reads_its_device_only_while_on():
         assert by_name(1) == 2 and by_call(1, at=torch.device("cpu")) == 2
     assert [r["name"] for r in tracing.spans()] == ["by_name", "by_call"]
     assert seen == [torch.device("cpu")]
+
+
+HOST_READS = ("__bool__", "__float__", "__int__", "__index__", "__complex__",
+              "item", "tolist", "cpu", "numpy")
+
+
+def test_moved_rows_resolve_without_a_synchronisation_inside_the_factor(monkeypatch):
+    """On the kernel route (sent there on the CPU: complex64, zero-padded to
+    256, the plain panel step and row swaps) the factor's LU span carries
+    the row swaps' device count, still a tensor when the factor returns,
+    with every host read and synchronisation patched to raise inside it;
+    `spans()` resolves it to the rows the panels' permutations moved, and
+    `gathered_rows` is sum over panels and matrices of n_pad - j."""
+    from feast_tpu_torch.ops import lu as lumod
+    from feast_tpu_torch.ops import row_swap
+
+    monkeypatch.setattr(lumod, "_kernel_route", lambda dtype, device: dtype == torch.complex64)
+    perms = []
+    apply = row_swap.apply_panel_perm
+
+    def recorded(A3, perm, j, b, moved=None):
+        perms.append((j, perm.clone()))
+        return apply(A3, perm, j, b, moved)
+
+    monkeypatch.setattr(row_swap, "apply_panel_perm", recorded)
+    n, N = 200, 4
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+    z = torch.as_tensor(rng.standard_normal(N) + 1j * rng.standard_normal(N))
+    guarded = {}
+    for name in HOST_READS:
+        guarded[name] = getattr(torch.Tensor, name)
+
+        def refuse(*a, _name=name, **k):
+            raise AssertionError(f"host read inside the factor: Tensor.{_name}")
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: 1 / 0)
+    with tracing.recording():
+        with tracing.span("feast.solve"):
+            fmod._factor_scan(A, None, z, True)
+    for name, orig in guarded.items():
+        monkeypatch.setattr(torch.Tensor, name, orig)
+    lu_rec = [r for r in tracing._records if r.rec["name"] == "feast.factor.lu"]
+    assert len(lu_rec) == 1 and isinstance(lu_rec[0].rec["attrs"]["moved_rows"], torch.Tensor)
+    rec = next(r for r in tracing.spans() if r["name"] == "feast.factor.lu")
+    want = sum(int((p[:, j:] != torch.arange(j, 256, dtype=p.dtype)).sum()) for j, p in perms)
+    assert len(perms) == 2
+    assert rec["attrs"] == {"moved_rows": want, "gathered_rows": N * (256 + 128)}
+    assert type(rec["attrs"]["moved_rows"]) is int and 0 < want <= 2 * 128 * 2 * N
