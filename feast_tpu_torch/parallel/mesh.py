@@ -202,6 +202,13 @@ def node_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     return all_reduce(x, mesh, "node")
 
 
+def node_sum_(x: torch.Tensor, mesh) -> torch.Tensor:
+    """`node_sum` in place, into x (contiguous): the same sum, bit for bit,
+    without the copy."""
+    dist.all_reduce(_planes(x), group=mesh.get_group("node"))
+    return x
+
+
 def all_gather(x: torch.Tensor, mesh, dim: str) -> torch.Tensor:
     """The blocks x of the ranks of one mesh dimension, concatenated in mesh
     order along the leading axis.  Every gather of the parallel layer goes

@@ -17,8 +17,8 @@ refinement, each residual one wide matmul over all nodes.
 `feast_compiled` is the JAX package's single-program loop: on the card its
 sweeps are CUDA graphs, captured once per signature and replayed, with the
 stop rules and the eig guard decided on the device (`_SweepProgram`; under
-`mesh=` the node all-reduce is inside the update graph); the CPU and the
-options `_graph_scope` names run the plain loop.  The sweep steps take a
+`mesh=` the node all-reduce is a graph of its own after the update's); the
+CPU and the options `_graph_scope` names run the plain loop.  The sweep steps take a
 leading slice axis too, which `parallel/slicing.py`'s stacked-slice
 program runs.
 
@@ -42,8 +42,9 @@ and has no effect.
 `parallel.node_mesh`) gives each rank nodes / ranks of the contour nodes:
 it factors them (on the card, K1 with that batch), forms their share of
 the resolvent-weighted node sum, and one all-reduce over "node" gives the
-moment block.  Every rank repeats the Rayleigh-Ritz phase (K2 seed on the
-card), so every rank returns the same result.  X0 is broadcast from rank
+moment block (span "feast.node_sum", with the tier, the payload's `bytes`
+and the `ranks`).  Every rank repeats the Rayleigh-Ritz phase (K2 seed on
+the card), so every rank returns the same result.  X0 is broadcast from rank
 0; A and B are the caller's on every rank.
 """
 
@@ -168,16 +169,17 @@ def _solve_block(n: int) -> int:
     return 512 if n > 4096 else lumod._auto_block(n)
 
 
-@tracing.spanned("feast.factor", "A")
+@tracing.spanned("feast.factor", "A", attrs=lambda A, B, z, solve_f32: {"nodes": z.shape[0]})
 def _factor_scan(A, B, z, solve_f32: bool):
     """Factor every node matrix A - z_i B, stacked on a leading node axis,
     plus the diagonal-block inverses for the repeated solves.  Each node
     matrix is formed in complex128 and cast into a `lumod.factor_buffer`,
     as in the JAX package, and factored there in place: LU is a view of
     that buffer, and the node matrices are never held twice.
-    Spans: "feast.factor", inside it "feast.factor.form" (the node
-    matrices) and "feast.factor.lu" (with the row swaps' `moved_rows` and
-    `gathered_rows` on the kernel route, `lumod.lu_factor_inplace`)."""
+    Spans: "feast.factor" (with `nodes`, the node matrices this rank
+    factors), inside it "feast.factor.form" (the node matrices) and
+    "feast.factor.lu" (with the row swaps' `moved_rows` and `gathered_rows`
+    on the kernel route, `lumod.lu_factor_inplace`)."""
     n = A.shape[0]
     dt = torch.complex64 if solve_f32 else A.dtype
     S = lumod.factor_buffer(z.shape, n, dt, A.device)
@@ -635,8 +637,9 @@ def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
     status tensor a sweep where JAX reads none; where the mixed eig's guard
     fails it runs that sweep's Rayleigh-Ritz again with the full eig (JAX's
     lax.cond), and it replays no update for the sweep that stops.  Under
-    mesh= the node all-reduce is captured inside the update graph.  The
-    graphs are cached for the newest signature only (`_program_key`).
+    mesh= the node all-reduce is captured as a graph of its own, replayed
+    after each update's.  The graphs are cached for the newest signature
+    only (`_program_key`).
     Options whose sweep reads the host take the plain loop instead, by the
     rule of `_graph_scope` (the CPU, pencils "qz" and "hermitian", an m0
     outside 2..128, eig mode "full", Schur backend "torch"); a failure
@@ -658,8 +661,8 @@ def _feast_compiled_plain(*args, **kw) -> FeastResult:
 def _feast_compiled_steps(*args, **kw) -> FeastResult:
     """`feast_compiled` through the sweep program run eagerly on any device:
     the steps, static buffers and cache of the graphed path, without
-    graphs (pencil "lu"; mesh= too, its all-reduce inside the update
-    step)."""
+    graphs (pencil "lu"; mesh= too, its all-reduce a step after each
+    update)."""
     return _compiled("steps", **_bind(args, kw))
 
 
@@ -674,7 +677,7 @@ def _graph_scope(device: torch.device, m0: int, pencil: str) -> Optional[str]:
     "lu") captures its sweeps as CUDA graphs, else why it runs the plain
     loop.  This rule decides, never a caught capture error.  mesh= is no
     reason: the dense drivers' one collective a sweep is the node sum, an
-    NCCL all-reduce, which the update graph holds.
+    NCCL all-reduce, which a graph of its own holds.
       - off the card there is nothing to capture;
       - pencil "qz": ops/qz.py decides its deflations on the host;
       - pencil "hermitian": torch.linalg.eigh checks its info on the host;
@@ -711,13 +714,15 @@ def _compiled(route, A, X0, contour, *, c, r, nodes, iters, tol, ortho, B, mesh,
         route = "plain" if _graph_scope(Q.device, Q.shape[1], pencil) else "graphs"
     elif route == "steps" and pencil != "lu":
         raise ValueError("the sweep program takes pencil 'lu'")
+    group = None if mesh is None else mesh.get_group("node")
     LUb, permb, dinvb = _factor_scan(A, B, z, mixed)
     if route == "plain":
         return _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour,
-                             iters, tol, ortho, mixed, two_tier, pencil)
+                             iters, tol, ortho, mixed, two_tier, pencil,
+                             None if group is None else group.size())
     graphs = route == "graphs"
     key = _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs,
-                       None if mesh is None else mesh.get_group("node"))
+                       group)
     prog = _PROGRAMS.get(key)
     if prog is None:
         clear_graph_cache()
@@ -725,7 +730,7 @@ def _compiled(route, A, X0, contour, *, c, r, nodes, iters, tol, ortho, B, mesh,
             graphs, Q.device, kind=contour.kind, params=contour.params, tol=tol,
             ortho=ortho, mixed=mixed, two_tier=two_tier,
             mixed_eig=eigmod._mixed_route(torch.complex128, Q.shape[1], Q.device),
-            node_sum=node_sum)
+            mesh=mesh)
     prog.load(A, B, Q, LUb, permb, dinvb, z, w)
     del LUb, permb, dinvb
     return prog.run(iters)
@@ -738,12 +743,30 @@ def _coarse_floor(A32: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.finfo(torch.float32).eps * cx.fro_norm(A32).double() / math.sqrt(n)
 
 
+def _node_sum_span(Q: torch.Tensor, tier: str, ranks: int):
+    """Span "feast.node_sum" of the sum of Q over `ranks` node ranks, with
+    the tier and the payload's `bytes`."""
+    return tracing.span("feast.node_sum", Q.device, tier=tier,
+                        bytes=Q.numel() * Q.element_size(), ranks=ranks)
+
+
+def _summed(node_sum, Q: torch.Tensor, tier: str, ranks) -> torch.Tensor:
+    """Q summed over the node ranks in its span; without a mesh (ranks
+    None) Q itself."""
+    if ranks is None:
+        return Q
+    with _node_sum_span(Q, tier, ranks):
+        return node_sum(Q)
+
+
 @tracing.spanned("feast.loop", "Q")
 def _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour, iters, tol,
-                  ortho, mixed, two_tier, pencil) -> FeastResult:
+                  ortho, mixed, two_tier, pencil, ranks=None) -> FeastResult:
     """The loop of `_feast_compiled_plain`: each sweep's residuals read on
     the host.  Spans as `_SweepProgram.run`'s: "feast.loop" around both
-    tiers, "feast.rr" and "feast.update" around each sweep's steps."""
+    tiers, "feast.rr" and "feast.update" around each sweep's steps, and
+    under a mesh of `ranks` node ranks "feast.node_sum" after each
+    update."""
     kind, params = contour.kind, contour.params
     n, m0 = Q.shape
     dev = Q.device
@@ -769,9 +792,9 @@ def _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour, iters, to
                 Qc = Qo
             else:
                 with tracing.span("feast.update", dev, tier="c64"):
-                    Qc = node_sum(_node_update_scan(
-                        LUb, permb, z32, w32, X, R, lam, None, A32, B32, refine=0,
-                        dinvb=dinvb))
+                    Qc = _node_update_scan(LUb, permb, z32, w32, X, R, lam, None, A32,
+                                           B32, refine=0, dinvb=dinvb)
+                Qc = _summed(node_sum, Qc, "c64", ranks)
             prev = worst
             c_it += 1
         Q = Qc.to(A.dtype)
@@ -791,8 +814,9 @@ def _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour, iters, to
         done = bool(inside.any()) and worst < tol
         if not done and it < iters:  # the last allowed sweep's update is dead
             with tracing.span("feast.update", dev, tier="c128"):
-                Q = node_sum(_node_update_scan(LUb, permb, z, w, X, R, lam,
-                                               solve_dtype, A, B, dinvb=dinvb))
+                Q = _node_update_scan(LUb, permb, z, w, X, R, lam, solve_dtype, A, B,
+                                      dinvb=dinvb)
+            Q = _summed(node_sum, Q, "c128", ranks)
         it += 1
     return FeastResult(lam, X, res, inside, it, done)
 
@@ -859,7 +883,7 @@ def _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs
     """The signature a sweep program and its graphs are cached under, as
     jax.jit caches per static argument and shape: every value the steps
     bake in, every backend switch that changes the captured ops, and under
-    mesh= the node group whose all-reduce the update graph holds (the
+    mesh= the node group whose all-reduce the node-sum graphs hold (the
     cached program keeps the group alive, so its id is not reused)."""
     return (str(Q.device), Q.dtype, A.shape[0], Q.shape[1], z.shape[0], B is None,
             contour.kind, tuple(contour.params), iters, tol, ortho, mixed, two_tier,
@@ -977,17 +1001,20 @@ class _SweepProgram(_Program):
     and their complex64 copies, the factor, the nodes and weights, the
     start subspace, the complex64 tier's floor); `run` drives the tiers.  A
     sweep is two steps: Rayleigh-Ritz with the stop flag, then the node
-    update, which writes the next subspace into the state buffer; under a
-    mesh the update's node sum (`node_sum`, an all-reduce over "node") is
-    part of that step.  `sweeps` holds the last run's sweeps in each tier
-    (complex64, complex128)."""
+    update, which writes the next subspace into the state buffer.  Under a
+    mesh the update writes this rank's share there, and a third step, the
+    node sum, all-reduces it over "node" in place (`pmesh.node_sum_`), so
+    the collective and the wait for the other ranks are replayed, and
+    timed, apart from the local work.  `sweeps` holds the last run's sweeps
+    in each tier (complex64, complex128)."""
 
     def __init__(self, graphs: bool, device, *, kind, params, tol, ortho, mixed,
-                 two_tier, mixed_eig, node_sum):
+                 two_tier, mixed_eig, mesh=None):
         super().__init__(graphs, device)
         self.kind, self.params, self.tol, self.ortho = kind, params, tol, ortho
         self.mixed, self.two_tier, self.mixed_eig = mixed, two_tier, mixed_eig
-        self.node_sum = node_sum
+        self.mesh = mesh
+        self.ranks = None if mesh is None else mesh.get_group("node").size()
         self.sweeps = (0, 0)
 
     def load(self, A, B, Q, LUb, permb, dinvb, z, w):
@@ -1016,10 +1043,13 @@ class _SweepProgram(_Program):
 
     def _coarse_update(self):
         b, o = self.buf, self.steps["coarse_rr"].out
-        b["Qc"].copy_(self.node_sum(_node_update_scan(
+        b["Qc"].copy_(_node_update_scan(
             b["LUb"], b["permb"], b["z32"], b["w32"], o["X"], o["R"], o["lam"], None,
-            b["A32"], b.get("B32"), refine=0, dinvb=(b["invL"], b["invU"]))))
+            b["A32"], b.get("B32"), refine=0, dinvb=(b["invL"], b["invU"])))
         return {}
+
+    def _coarse_sum(self):
+        return self._node_sum("Qc")
 
     def _fine_rr(self):
         b = self.buf
@@ -1035,11 +1065,28 @@ class _SweepProgram(_Program):
 
     def _fine_update(self):
         b, o = self.buf, self.steps["fine_rr"].out
-        b["Q"].copy_(self.node_sum(_node_update_scan(
+        b["Q"].copy_(_node_update_scan(
             b["LUb"], b["permb"], b["z"], b["w"], o["X"], o["R"], o["lam"],
             torch.complex64 if self.mixed else None, b["A"], b.get("B"),
-            dinvb=(b["invL"], b["invU"]))))
+            dinvb=(b["invL"], b["invU"])))
         return {}
+
+    def _fine_sum(self):
+        return self._node_sum("Q")
+
+    def _node_sum(self, name: str) -> dict:
+        from ..parallel import mesh as pmesh
+
+        pmesh.node_sum_(self.buf[name], self.mesh)
+        return {}
+
+    def _sum_step(self, tier: str):
+        """Under a mesh, the node sum after the tier's update: its step,
+        replayed in span "feast.node_sum"."""
+        if self.mesh is None:
+            return
+        with _node_sum_span(self.buf["Qc" if tier == "c64" else "Q"], tier, self.ranks):
+            self._step("coarse_sum" if tier == "c64" else "fine_sum")
 
     @tracing.spanned("feast.eig_fallback", lambda self, o: self.buf["Q"].device)
     def _full_rr(self, o: dict) -> bool:
@@ -1061,8 +1108,9 @@ class _SweepProgram(_Program):
     @tracing.spanned("feast.loop", lambda self, iters: self.buf["Q"].device)
     def run(self, iters: int) -> FeastResult:
         """Both tiers' sweeps.  Spans: "feast.loop" around the call, and
-        around each step (a replay, with graphs) "feast.rr" or "feast.update"
-        with the tier ("c64" or "c128"); never inside a captured step."""
+        around each step (a replay, with graphs) "feast.rr", "feast.update"
+        or, under a mesh, "feast.node_sum" with the tier ("c64" or "c128");
+        never inside a captured step."""
         b = self.buf
         dev = b["Q"].device
         it = c_it = 0
@@ -1078,6 +1126,7 @@ class _SweepProgram(_Program):
                 if not stop:
                     with tracing.span("feast.update", dev, tier="c64"):
                         self._step("coarse_update")
+                    self._sum_step("c64")
                 c_it += 1
             b["Q"].copy_(o["Qo"] if stop else b["Qc"])
             it = max(c_it - 1, 0)  # the stopping sweep did no update
@@ -1093,6 +1142,7 @@ class _SweepProgram(_Program):
             if not done and it < iters:  # the last allowed sweep's update is dead
                 with tracing.span("feast.update", dev, tier="c128"):
                     self._step("fine_update")
+                self._sum_step("c128")
             it += 1
         self.sweeps = (c_it, it - it0)
         if o is None:

@@ -202,7 +202,7 @@ def span(name: str, device=None, **attrs):
     return _Span(name, device, attrs) if _on() else _OFF
 
 
-def spanned(name: str, device=None):
+def spanned(name: str, device=None, attrs=None):
     """Decorator: each call of the function is a span named `name`.
 
         @tracing.spanned("nlfeast.extract", "Q0")
@@ -210,7 +210,8 @@ def spanned(name: str, device=None):
 
     `device`: where the call's work runs, as the name of a parameter (its
     value a device, or a tensor on it) or as a function of the call's
-    arguments; read only while spans are on."""
+    arguments; `attrs`: a function of the call's arguments that gives the
+    span's attributes as a dict.  Both are read only while spans are on."""
     def wrap(fn):
         sig = inspect.signature(fn) if isinstance(device, str) else None
 
@@ -227,7 +228,8 @@ def spanned(name: str, device=None):
         def run(*args, **kwargs):
             if not _on():
                 return fn(*args, **kwargs)
-            with _Span(name, where(args, kwargs), {}):
+            with _Span(name, where(args, kwargs),
+                       {} if attrs is None else attrs(*args, **kwargs)):
                 return fn(*args, **kwargs)
         return run
     return wrap

@@ -1,4 +1,5 @@
-"""Gloo ranks for the port's parallel tests.
+"""Gloo (or, on a machine with several cards, NCCL) ranks for the port's
+parallel tests.
 
 A `Ranks` group is spawned once per test module and runs one named case at
 a time on every rank (SPMD), each rank returning numpy results.  This
@@ -28,11 +29,13 @@ def case(fn):
     return fn
 
 
-def _serve(rank, world, store_path, inbox, outbox):
+def _serve(rank, world, store_path, inbox, outbox, backend="gloo"):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world), rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=90))
     try:
         while (msg := inbox.get()) is not None:
@@ -46,16 +49,18 @@ def _serve(rank, world, store_path, inbox, outbox):
 
 
 class Ranks:
-    """`world` spawned gloo ranks serving `CASES`."""
+    """`world` spawned ranks serving `CASES`: gloo, or with backend "nccl"
+    one card a rank."""
 
-    def __init__(self, world: int, tmpdir: str):
+    def __init__(self, world: int, tmpdir: str, backend: str = "gloo"):
         ctx = multiprocessing.get_context("spawn")
         self.world = world
         self.inboxes = [ctx.Queue() for _ in range(world)]
         self.outbox = ctx.Queue()
         store = os.path.join(tmpdir, "store")
         self.procs = [ctx.Process(target=_serve, daemon=True,
-                                  args=(r, world, store, self.inboxes[r], self.outbox))
+                                  args=(r, world, store, self.inboxes[r], self.outbox,
+                                        backend))
                       for r in range(world)]
         for p in self.procs:
             p.start()
@@ -153,6 +158,52 @@ def compiled_routes(A, X0, **kw):
            (("plain", fmod._feast_compiled_plain), ("steps", fmod._feast_compiled_steps))}
     fmod.clear_graph_cache()
     return out
+
+
+@case
+def node_sum_spans(A, X0, device_type="cpu", **kw):
+    """feast_compiled(mesh=) through the plain loop, the sweep program run
+    eagerly and, on the card, its graphs (twice: capture, then replays),
+    each under `tracing.recording()`: the results, and per route the
+    `feast.update` and `feast.node_sum` spans (tier and attributes) and the
+    `nodes` of `feast.factor`."""
+    import importlib
+
+    import feast_tpu_torch as ft
+    from feast_tpu_torch.utils import tracing
+
+    fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    mesh = ft.parallel.node_mesh(device_type=device_type)
+    routes = [("plain", fmod._feast_compiled_plain), ("steps", fmod._feast_compiled_steps)]
+    if device_type == "cuda":
+        routes += [("graphs", ft.feast_compiled), ("replays", ft.feast_compiled)]
+    out = {}
+    for route, fn in routes:
+        with tracing.recording():
+            res = fn(A, X0, mesh=mesh, device=device_type, **kw)
+        recs = tracing.spans()
+        res = res._replace(**{k: getattr(res, k).cpu() for k in ("lam", "X", "res", "inside")})
+        out[route] = _host(res)
+        out[route]["spans"] = [(r["name"], r["attrs"]) for r in recs
+                               if r["name"] in ("feast.update", "feast.node_sum",
+                                                "feast.factor")]
+    prog = next(iter(fmod._PROGRAMS.values()))
+    out["replay_count"] = prog.replays if prog.graphs else 0
+    fmod.clear_graph_cache()
+    return out
+
+
+@case
+def in_place(n=6):
+    """`node_sum_` on this rank's own tensor: (the sum, whether it kept its
+    storage)."""
+    import feast_tpu_torch as ft
+
+    mesh = ft.parallel.node_mesh(device_type="cpu")
+    s = (torch.arange(n, dtype=torch.float64) + 1j) * (torch.distributed.get_rank() + 1)
+    ptr = s.data_ptr()
+    ft.parallel.mesh.node_sum_(s, mesh)
+    return s.numpy(), s.data_ptr() == ptr
 
 
 class _Skewed:

@@ -787,3 +787,37 @@ def test_feast_compiled_mesh_graphs_over_nccl(dev, tmp_path):
     g, p, warm = results
     assert counts[0] == counts[1] == counts[2] and counts[0][1] > 0
     assert p.converged and _same_result(g, p) and _same_result(warm, p)
+
+
+def test_feast_compiled_node_sum_graphs_over_nccl_ranks(dev, tmp_path):
+    """feast_compiled(mesh=) on one card a rank over NCCL (2 or 4 ranks):
+    the update and the node sum are graphs of their own, captured by the
+    first solve and replayed by the next, each sum in a `feast.node_sum`
+    span after its update; every route gives the plain loop's bits on
+    every rank."""
+    from _torch_ranks import Ranks
+
+    world = 4 if torch.cuda.device_count() >= 4 else 2
+    if torch.cuda.device_count() < world:
+        pytest.skip("needs 2 or more CUDA devices")
+    A, X0, _ = _graph_problem()
+    ranks = Ranks(world, str(tmp_path), backend="nccl")
+    try:
+        outs = ranks.run("node_sum_spans", A=A, X0=X0, device_type="cuda", c=5.5,
+                         r=5.2, nodes=16, iters=20, tol=1e-10, mixed_prec=True)
+    finally:
+        ranks.close()
+    for o in outs:
+        assert o["replay_count"] > 0 and o["plain"]["converged"]
+        for route in ("steps", "graphs", "replays"):
+            assert o[route]["spans"] == o["plain"]["spans"]
+            for k in ("lam", "X", "res", "inside", "n_iter", "converged"):
+                np.testing.assert_array_equal(o[route][k], o["plain"][k])
+                np.testing.assert_array_equal(o[route][k], outs[0][route][k])
+        spans = o["replays"]["spans"]
+        sums = [a for name, a in spans if name == "feast.node_sum"]
+        assert len(sums) == sum(name == "feast.update" for name, _ in spans) > 0
+        size = {"c64": 8, "c128": 16}
+        assert all(a["ranks"] == world and a["bytes"] == 256 * 16 * size[a["tier"]]
+                   for a in sums)
+        assert [a["nodes"] for name, a in spans if name == "feast.factor"] == [16 // world]
