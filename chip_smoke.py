@@ -47,6 +47,18 @@ Phases, each printing one JSON line:
           21 diagonals, n = 167,000; m = 8, 8 nodes) and at m = 3 on a ragged
           n; ptxas registers, GB/s and bound, with torch.sparse CSR as a
           yardstick
+  diag_inv  the diagonal-block inverses (ops/lu.py::lu_diag_inv, blocks of
+          512) on K1's factors of random matrices at the benchmark's shapes:
+          16 x 10240 (dense), 4 x 9956 (the gun's chunk, padded to 9,984),
+          4 x 20480 (a rank of the four-card cell): the tile kernel
+          (csrc/diag_inv.cu) alone, the kernel route (the kernel and the
+          doubling) and the plain substitution, each in device ms, host
+          wall, launch calls and temporaries; the kernel's tiles of two
+          matrices against the plain tile step's (`tiles_plain`: copied
+          tiles equal, inverted ones within 1e-5), the route's and the
+          complex64 substitution's inverses against the substitution in
+          complex128 (1e-4); the kernel's bound by bytes, the route's by
+          the operations a triangular inverse needs
   small   feast_compiled on the bench problem at n = 512 against LAPACK
           eigenvalues (numpy)
   main    feast_compiled(mixed_prec=True) on bench.py's problem (n = 4096,
@@ -55,8 +67,8 @@ Phases, each printing one JSON line:
           first (cold) run and read just after it; then best of 3 walls,
           each solve timing its own factor phase; every inside Ritz pair's
           residual recomputed on the host in float64; the plain loop
-          (`_feast_compiled_plain`) once, its K1 and K2 launches and
-          iterations equal to the graphs'
+          (`_feast_compiled_plain`) once, its K1, K2 and diagonal-inverse
+          kernel launches and iterations equal to the graphs'
   compiled_graph  the graphs against the plain loop on main's problem and on
           a B pencil (I + a Hermitian perturbation) at the same n: cold
           wall, capture and instantiation seconds, then 3 warm solves of
@@ -184,7 +196,7 @@ import time
 
 import numpy as np
 
-PHASES = ("k1", "k2", "k3", "k4", "small", "main", "profile", "compiled_graph",
+PHASES = ("k1", "k2", "k3", "k4", "diag_inv", "small", "main", "profile", "compiled_graph",
           "dense_variants",
           "panel_backend", "sparse", "sparse_profile", "fastdiag", "unstructured", "orchestrate",
           "parallel", "nonlinear", "nonlinear_small")
@@ -893,6 +905,7 @@ def phase_small(torch, ft, dev):
 def phase_main(torch, ft, dev, refs, reps=3):
     panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
     schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
+    diag_inv = importlib.import_module("feast_tpu_torch.ops.diag_inv")
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
     A, X0, c, r = bench_problem()
     At = torch.as_tensor(A, device=dev)
@@ -903,9 +916,11 @@ def phase_main(torch, ft, dev, refs, reps=3):
     def counted(fn):
         panel_lu.launches = 0
         schur_kernel.launches = 0
+        diag_inv.launches = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, {"panel_lu": panel_lu.launches, "schur": schur_kernel.launches}
+        return out, {"panel_lu": panel_lu.launches, "schur": schur_kernel.launches,
+                     "diag_inv": diag_inv.launches}
 
     t0 = time.perf_counter()
     res, launches = counted(lambda: ft.feast_compiled(At, Xt, **kw))
@@ -947,8 +962,7 @@ def phase_main(torch, ft, dev, refs, reps=3):
     require(len(lam) >= 1, "main: no eigenvalue inside")
     require(np.isfinite(rr).all() and rr.max() < 1e-10,
             f"main: host residual {rr.max()}")
-    require(launches["panel_lu"] > 0 and launches["schur"] > 0,
-            f"main: kernel launches {launches}")
+    require(all(v > 0 for v in launches.values()), f"main: kernel launches {launches}")
     require(launches == launches_plain and res.n_iter == res_plain.n_iter,
             f"main: launches {launches} in {res.n_iter} iterations, the plain loop "
             f"{launches_plain} in {res_plain.n_iter}")
@@ -2674,6 +2688,98 @@ def phase_parallel(torch, ft, dev, refs, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def diag_inv_ops(blocks, block):
+    """fp32 operations that the inverses of `blocks` diagonal blocks need,
+    both triangles: (the tile kernel's, the doubling's).  A 64-tile is
+    64^3 / 6 complex multiply-adds; a level of width s is block / (2 s)
+    pairs of two s x s x s products of a triangle by a full block, half a
+    full product each.  Together 2 * 4/3 block^3 a block, xTRTRI's count;
+    the doubling's dense products do twice their share."""
+    tiles = blocks * (block // 64) * 2 * 8 * 64 ** 3 / 6
+    products, s = 0, 64
+    while s < block:
+        products += blocks * 2 * (block // (2 * s)) * 2 * 8 * s ** 3 / 2
+        s *= 2
+    return tiles, products
+
+
+def phase_diag_inv(torch, dev, shapes=((16, 10240), (4, 9956), (4, 20480)), block=512):
+    """The diagonal-block inverses at the cells' shapes (see the docstring
+    at the top): timings, launch calls, temporaries and errors."""
+    from feast_tpu_torch.ops import diag_inv
+    from feast_tpu_torch.ops import lu as lumod
+
+    def rel(got, want):
+        scale = want.abs().amax(dim=(-2, -1), keepdim=True)
+        return float(((got.to(want.dtype) - want).abs() / scale).max())
+
+    row = None
+    for B, n in shapes:
+        gen = torch.Generator(device=dev).manual_seed(B * n)
+        buf = lumod.factor_buffer((B,), n, torch.complex64, dev)
+        for i in range(B):
+            buf[i, :n, :n] = torch.randn((n, n), dtype=torch.complex64, device=dev,
+                                         generator=gen)
+        LU, _ = lumod.lu_factor_inplace(buf, n)
+        torch.cuda.synchronize()
+        blocks = B * -(-n // block)
+        out = {"phase": "diag_inv", "batch": B, "n": n, "block": block, "blocks": blocks}
+        base = torch.cuda.memory_allocated(dev)
+        for name, fn, reps in (("kernel", lambda: diag_inv.tiles(LU, block), 5),
+                               ("route", lambda: lumod.lu_diag_inv(LU, block), 5),
+                               ("plain", lambda: lumod.lu_diag_inv_plain(LU, block), 2)):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3
+            out[f"{name}_temp_gb"] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+            out[f"{name}_ms"] = cuda_ms(fn, reps)
+            tr = traced(torch, fn, cpu=False)
+            out[f"{name}_launch_calls"] = tr["launch_calls"]
+            if name == "route":
+                out["route_kernels"] = top_kernels(tr, 8)
+        # the kernel's tiles against the plain tile step on the same factor:
+        # the copied tiles entry for entry, the inverted ones to rounding
+        got, want = diag_inv.tiles(LU[:2], block), diag_inv.tiles_plain(LU[:2], block)
+        diag = torch.zeros(block, block, dtype=torch.bool, device=dev)
+        for i in range(0, block, diag_inv.TILE):
+            diag[i:i + diag_inv.TILE, i:i + diag_inv.TILE] = True
+        out["tiles_copied_equal"] = all(bool(torch.equal(g[..., ~diag], w[..., ~diag]))
+                                        for g, w in zip(got, want))
+        out["tiles_err"] = [rel(torch.where(diag, g, 0), torch.where(diag, w, 0))
+                            for g, w in zip(got, want)]
+        out["tiles_abs_err"] = max(float((torch.where(diag, g - w, 0)).abs().max())
+                                   for g, w in zip(got, want))
+        require(out["tiles_copied_equal"] and max(out["tiles_err"]) < 1e-5,
+                f"diag_inv {B} x {n}: tiles against tiles_plain {out['tiles_err']}, "
+                f"copied equal {out['tiles_copied_equal']}")
+        got = lumod.lu_diag_inv(LU[:2], block)
+        p64 = lumod.lu_diag_inv_plain(LU[:2], block)
+        want = lumod.lu_diag_inv_plain(LU[:2].to(torch.complex128), block)
+        out["route_err"] = [rel(g, w) for g, w in zip(got, want)]
+        out["plain64_err"] = [rel(p, w) for p, w in zip(p64, want)]
+        require(max(out["route_err"]) < 1e-4, f"diag_inv {B} x {n}: route error {out['route_err']}")
+        del got, p64, want
+        tile_ops, product_ops = diag_inv_ops(blocks, block)
+        nbytes = blocks * block * block * 8 * 3     # the triangles read, two outputs written
+        out["kernel_bound_ms"], out["kernel_bound_by"] = bound_ms(nbytes, tile_ops)
+        out["route_bound_ms"], out["route_bound_by"] = bound_ms(nbytes, tile_ops + product_ops)
+        emit(out)
+        if row is None:         # the dense cell's shape; launches from the main phase
+            row = {"name": "diag_inv", "route": "cuda",
+                   "source": "feast_tpu_torch/csrc/diag_inv.cu",
+                   "replaces": "feast_tpu/ops/lu.py:197", "max_abs_err": out["tiles_abs_err"],
+                   "ms": out["kernel_ms"], "plain_ms": out["plain_ms"],
+                   "bound_ms": out["kernel_bound_ms"], "bound_by": out["kernel_bound_by"],
+                   "library_ms": None}
+        del LU, buf
+        torch.cuda.empty_cache()
+    return row
+
+
 def load_baseline(root):
     """The K2 and K4 wrappers (ops.schur_kernel, ops.dia_kernel) of the
     feast_tpu_torch package of another checkout, imported under another
@@ -2744,7 +2850,8 @@ def main(argv=None):
     rows = [row for row in (run("k1", phase_k1, torch, panel_lu, dev),
                             run("k2", phase_k2, torch, schur_kernel, dev, base_schur),
                             run("k3", phase_k3, torch, ft, dev),
-                            run("k4", phase_k4, torch, dev, base_dia)) if row is not None]
+                            run("k4", phase_k4, torch, dev, base_dia),
+                            run("diag_inv", phase_diag_inv, torch, dev)) if row is not None]
     run("small", phase_small, torch, ft, dev)
     launches, inside_main, refs = {}, None, {}
     if "main" in phases:

@@ -45,7 +45,7 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # panel_lu: no fused multiply-add, so the kernel rounds every product and
 # sum as the plain PyTorch version does and the two pick the same pivots.
 SOURCE_FLAGS = {"panel_lu": ("--fmad=false",), "schur": (), "cmatmul": (),
-                "dia_spmm": (), "row_swap": ()}
+                "dia_spmm": (), "row_swap": (), "diag_inv": ()}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _funcs: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -96,14 +96,16 @@ def _unit_lower_solve_small(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return X
 
 
-def _upper_solve_small(U: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def _upper_solve_small(U: torch.Tensor, B: torch.Tensor, tiny=None) -> torch.Tensor:
     """Solve U X = B with U (..., b, b) upper triangular; a zero diagonal
-    entry is replaced by eps * max|U| (per matrix)."""
+    entry is replaced by eps * max|U| (per matrix), or by `tiny` (U's batch
+    shape) where given."""
     X = B.clone()
     b = U.shape[-1]
-    fi = torch.finfo(cx.real_dtype(U.dtype))
-    uscale = torch.sqrt(torch.amax(cx.abs2(U), dim=(-2, -1)))
-    tiny = (fi.eps * torch.clamp(uscale, min=fi.tiny ** 0.5)).to(U.dtype)
+    if tiny is None:
+        fi = torch.finfo(cx.real_dtype(U.dtype))
+        uscale = torch.sqrt(torch.amax(cx.abs2(U), dim=(-2, -1)))
+        tiny = (fi.eps * torch.clamp(uscale, min=fi.tiny ** 0.5)).to(U.dtype)
     for i in range(b - 1, -1, -1):
         rhs = X[..., i, :]
         if i + 1 < b:
@@ -127,11 +129,41 @@ def _pad_identity(LU: torch.Tensor, n_pad: int) -> torch.Tensor:
     return out
 
 
-def lu_diag_inv(LU: torch.Tensor, block: int):
+def lu_diag_inv(LU: torch.Tensor, block: int, span=None):
     """Inverses of the (block, block) diagonal blocks of L (unit lower) and
     U, each (..., nblocks, block, block) over blocks padded with an
     identity extension.  Multiplying by them turns every diagonal-block
-    substitution of a repeated `lu_solve` into one matmul."""
+    substitution of a repeated `lu_solve` into one matmul.
+
+    On the kernel route of K1 (`_kernel_route`: complex64 on the card under
+    the "pallas" panel backend) with a block of 64 * 2^k, the 64 x 64
+    diagonal tiles are inverted by the kernel `csrc/diag_inv.cu` and joined
+    by log2(block / 64) levels of batched products (`diag_inv`): a few dozen
+    launches, no synchronisation.  Everything else (the CPU, complex128, the
+    "xla" backend, other blocks) takes the row-by-row substitution of
+    `lu_diag_inv_plain`.  Both replace a zero diagonal entry of U by
+    eps * max(sqrt(max |U|^2 over its block's upper triangle), sqrt(tiny)).
+
+    span: a `utils.tracing` span handle around the call, or None; while it
+    records it gets `blocks`, the diagonal blocks inverted (matrices times
+    blocks a matrix), and `kernel_blocks`, those of them on the kernel
+    route."""
+    from . import diag_inv
+
+    kernel = _kernel_route(LU.dtype, LU.device) and diag_inv.kernel_block(block)
+    if span is not None and span.active:
+        n = LU.shape[-1]
+        blocks = LU.numel() // (n * n) * -(-n // block)
+        span.set("blocks", blocks)
+        span.set("kernel_blocks", blocks if kernel else 0)
+    if kernel:
+        return diag_inv.doubling(*diag_inv.tiles(LU, block))
+    return lu_diag_inv_plain(LU, block)
+
+
+def lu_diag_inv_plain(LU: torch.Tensor, block: int):
+    """`lu_diag_inv` by the JAX package's row-by-row substitution, on every
+    route: the kernel route's plain version."""
     n = LU.shape[-1]
     # the last block takes an identity extension up to `block`; only the
     # diagonal blocks are copied

@@ -177,9 +177,11 @@ def _factor_scan(A, B, z, solve_f32: bool):
     as in the JAX package, and factored there in place: LU is a view of
     that buffer, and the node matrices are never held twice.
     Spans: "feast.factor" (with `nodes`, the node matrices this rank
-    factors), inside it "feast.factor.form" (the node matrices) and
+    factors), inside it "feast.factor.form" (the node matrices),
     "feast.factor.lu" (with the row swaps' `moved_rows` and `gathered_rows`
-    on the kernel route, `lumod.lu_factor_inplace`)."""
+    on the kernel route, `lumod.lu_factor_inplace`) and
+    "feast.factor.diag_inv" (with `blocks` and `kernel_blocks`,
+    `lumod.lu_diag_inv`)."""
     n = A.shape[0]
     dt = torch.complex64 if solve_f32 else A.dtype
     S = lumod.factor_buffer(z.shape, n, dt, A.device)
@@ -188,7 +190,9 @@ def _factor_scan(A, B, z, solve_f32: bool):
             S[i, :n, :n] = _shifted_single(A, B, z[i])
     with tracing.span("feast.factor.lu", A.device) as sp:
         LU, perm = lumod.lu_factor_inplace(S, n, span=sp)
-    return LU, perm, lumod.lu_diag_inv(LU, _solve_block(n))
+    with tracing.span("feast.factor.diag_inv", A.device) as sp:
+        dinv = lumod.lu_diag_inv(LU, _solve_block(n), span=sp)
+    return LU, perm, dinv
 
 
 def _factor_into(buf, A, B, z):
@@ -196,12 +200,15 @@ def _factor_into(buf, A, B, z):
     each node matrix formed in complex128 and cast into the buffer, then
     factored in place, so the store is never held twice.  Returns (LU, a
     view of `buf`; perm; the diagonal-block inverses).  A padded buffer
-    may be factored again: a factor leaves its padding zero."""
+    may be factored again: a factor leaves its padding zero.  Span:
+    "feast.factor.diag_inv", as in `_factor_scan`."""
     n = A.shape[0]
     for i in range(z.shape[0]):
         buf[i, :n, :n] = _shifted_single(A, B, z[i])
     LU, perm = lumod.lu_factor_inplace(buf, n)
-    return LU, perm, lumod.lu_diag_inv(LU, _solve_block(n))
+    with tracing.span("feast.factor.diag_inv", A.device) as sp:
+        dinv = lumod.lu_diag_inv(LU, _solve_block(n), span=sp)
+    return LU, perm, dinv
 
 
 def _apply_op_batch(A, B, T, z):

@@ -186,8 +186,9 @@ class _Chunk(NamedTuple):
 def _factor_chunk(T, z: torch.Tensor, sl: slice, mixed: bool) -> _Chunk:
     """Evaluate T at the chunk's nodes straight into a factor buffer
     (zero-padded for the panel kernel on the card) and factor it.  Spans:
-    "nlfeast.factor", inside it "nlfeast.factor.form" (T at the nodes) and
-    "nlfeast.factor.lu"."""
+    "nlfeast.factor", inside it "nlfeast.factor.form" (T at the nodes),
+    "nlfeast.factor.lu" and "nlfeast.factor.diag_inv" (with `blocks` and
+    `kernel_blocks`, `lumod.lu_diag_inv`)."""
     dt = C64 if mixed else C128
     n = T.n
     buf = lumod.factor_buffer((z[sl].shape[0],), n, dt, z.device)
@@ -196,7 +197,9 @@ def _factor_chunk(T, z: torch.Tensor, sl: slice, mixed: bool) -> _Chunk:
     with tracing.span("nlfeast.factor.lu", z.device) as sp:
         LU, perm = lumod.lu_factor_inplace(buf, n, span=sp)
     sblock = 512 if n > 4096 else lumod._auto_block(n)
-    return _Chunk(sl, LU, perm, lumod.lu_diag_inv(LU, sblock))
+    with tracing.span("nlfeast.factor.diag_inv", z.device) as sp:
+        dinv = lumod.lu_diag_inv(LU, sblock, span=sp)
+    return _Chunk(sl, LU, perm, dinv)
 
 
 def _factor_all(T, z: torch.Tensor, mixed: bool, chunk: Optional[int] = None):

@@ -85,13 +85,16 @@ def test_feast_compiled_span_tree(route):
     assert tiers["c64"] >= 1 and tiers["c128"] >= 1
     # the stopping sweep of each tier does no update
     assert names["feast.update"] == tiers["c64"] - 1 + tiers["c128"] - 1
-    assert names["feast.factor"] == names["feast.factor.form"] == names["feast.factor.lu"] == 1
+    assert (names["feast.factor"] == names["feast.factor.form"] == names["feast.factor.lu"]
+            == names["feast.factor.diag_inv"] == 1)
     assert names["feast.loop"] == 1 and names["feast.eig_fallback"] == 0
     assert set(names) == {"feast.solve", "feast.factor", "feast.factor.form",
-                          "feast.factor.lu", "feast.loop", "feast.rr", "feast.update"}
+                          "feast.factor.lu", "feast.factor.diag_inv", "feast.loop",
+                          "feast.rr", "feast.update"}
     for r in recs:
         want = {"feast.factor": "feast.solve", "feast.loop": "feast.solve",
                 "feast.factor.form": "feast.factor", "feast.factor.lu": "feast.factor",
+                "feast.factor.diag_inv": "feast.factor",
                 "feast.rr": "feast.loop", "feast.update": "feast.loop"}.get(r["name"])
         if want:
             assert parent_name(by_id, r) == want, r["name"]
@@ -138,11 +141,13 @@ def test_nlfeast_span_tree(gun):
     assert names["nlfeast.extract"] == names["svd.jacobi"] == passes
     assert names["nlfeast.node_solve"] == chunks * passes
     # store=False factors every chunk again in every pass
-    for name in ("nlfeast.factor", "nlfeast.factor.form", "nlfeast.factor.lu"):
+    for name in ("nlfeast.factor", "nlfeast.factor.form", "nlfeast.factor.lu",
+                 "nlfeast.factor.diag_inv"):
         assert names[name] == chunks * passes, name
     want = {"nlfeast.factor": "nlfeast.solve", "nlfeast.node_solve": "nlfeast.solve",
             "nlfeast.extract": "nlfeast.solve", "nlfeast.factor.form": "nlfeast.factor",
-            "nlfeast.factor.lu": "nlfeast.factor", "svd.jacobi": "nlfeast.extract"}
+            "nlfeast.factor.lu": "nlfeast.factor", "nlfeast.factor.diag_inv": "nlfeast.factor",
+            "svd.jacobi": "nlfeast.extract"}
     for r in recs:
         if r["parent"] is not None:
             assert parent_name(by_id, r) == want[r["name"]], r["name"]
