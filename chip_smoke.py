@@ -66,23 +66,26 @@ Phases, each printing one JSON line:
           graphs: the kernels' launch counters are zeroed just before the
           first (cold) run and read just after it; then best of 3 walls,
           each solve timing its own factor phase; every inside Ritz pair's
-          residual recomputed on the host in float64; the plain loop
-          (`_feast_compiled_plain`) once, its K1, K2 and diagonal-inverse
-          kernel launches and iterations equal to the graphs'
-  compiled_graph  the graphs against the plain loop on main's problem and on
-          a B pencil (I + a Hermitian perturbation) at the same n: cold
-          wall, capture and instantiation seconds, then 3 warm solves of
-          each in turns; graph replays per solve; one warm graph solve under
-          torch.profiler (launch calls, device idle share, top kernels),
-          held on main's problem to the profile phase's trace of the plain
-          loop, and the cost of the host's status read a sweep; the same
-          iterations, sweeps per tier and inside count, eigenvalues within
-          1e-12 relative, host residuals below 1e-10, equal K1 and K2
-          launches, peak memory and the cached program's, and the graphs'
-          launch calls at most 5% of the plain loop's
-  profile the plain loop with per driver phase host walls (each phase
-          synchronized), then once under torch.profiler (device idle share,
-          launch calls, top kernels)
+          residual recomputed on the host in float64; the same steps run
+          eagerly (`_feast_compiled_steps`) once, their K1, K2 and
+          diagonal-inverse kernel launches and iterations equal to the
+          graphs'
+  compiled_graph  the graphs against the same steps run eagerly on main's
+          problem and on a B pencil (I + a Hermitian perturbation) at the
+          same n: 3 warm eager solves, then the graphs' cold wall, capture
+          and instantiation seconds and 3 warm solves (one route after the
+          other: the card holds one program); graph replays per solve; one
+          warm graph solve under torch.profiler (launch calls, device idle
+          share, top kernels), held on main's problem to the profile
+          phase's trace of the eager steps, and the cost of the host's
+          status read a sweep; the same iterations, sweeps per tier and
+          inside count, eigenvalues within 1e-12 relative, host residuals
+          below 1e-10, equal K1 and K2 launches, peak memory and the cached
+          program's, and the graphs' launch calls at most 5% of the eager
+          steps'
+  profile the sweep program's steps run eagerly, with per driver phase host
+          walls (each phase synchronized), then once under torch.profiler
+          (device idle share, launch calls, top kernels)
   sparse  feast_iterative on the 1M-dof generalized grid pencil (K = T (+) T
           5-point stiffness, B = M (x) M 9-point mass, N = 1000, lowest slice,
           m0 = 8, 8 nodes, AMG on strength aggregates with a complex64 V-cycle,
@@ -142,17 +145,18 @@ Phases, each printing one JSON line:
           "default") bit for bit cmatmul under both GEMM backends;
           shard_nodes and replicate of a nested tuple; then
           feast_compiled on the headline, its sweeps
-          graphs with the node all-reduce captured, cold, then 3 warm calls
-          in turns with its plain loop under the same mesh: bit for bit
-          that loop, main's eigenvalues to 1e-12 and iterations; then
+          graphs with the node all-reduce captured, after 3 calls of its
+          steps run eagerly under the same mesh, then cold and 3 warm: bit
+          for bit the eager steps, main's eigenvalues to 1e-12 and
+          iterations; then
           feast_iterative on the 1M pencil with fastdiag against fastdiag;
           feast_sliced and feast_sliced_parallel on dense_variants'
           Hermitian matrix over (0.5, 100.5) in 4 slices: the stacked
-          slices' program of graphs (mixed_prec) cold, then 3 warm calls
-          with the plain loop once among them, each call split into the
-          stochastic count, the factor and the loop; per slice the plain
-          loop's sweeps and convergence, eigenvalues within 1e-12
-          relative; one K2 launch a batched sweep; the factor's and the
+          slices' program of graphs (mixed_prec) cold, then 3 warm calls,
+          then its steps run eagerly once, each call split into the
+          stochastic count, the factor and the loop; per slice the eager
+          steps' sweeps, convergence and bits; one K2 launch a batched
+          sweep; the factor's and the
           loop's peak within the store and its 4 GiB temporaries; the status read's ms a sweep, capture seconds,
           launch calls of two sweeps of replays under the profiler and the
           bytes the cached program holds; then the full-precision call (as the
@@ -954,8 +958,9 @@ def phase_main(torch, ft, dev, refs, reps=3):
     require(len(factors) == reps, f"main: {len(factors)} factor phases in {reps} solves")
     i_best = int(np.argmin(walls))
     best, factor_s = walls[i_best], factors[i_best]
-    # the plain loop on the same inputs: the kernels' launches must agree
-    res_plain, launches_plain = counted(lambda: fmod._feast_compiled_plain(At, Xt, **kw))
+    # the same steps run eagerly on the same inputs: the kernels' launches
+    # must agree
+    res_steps, launches_steps = counted(lambda: fmod._feast_compiled_steps(At, Xt, **kw))
 
     lam, rr = host_residuals(A, res)
     require(res.converged, "main: not converged")
@@ -963,9 +968,9 @@ def phase_main(torch, ft, dev, refs, reps=3):
     require(np.isfinite(rr).all() and rr.max() < 1e-10,
             f"main: host residual {rr.max()}")
     require(all(v > 0 for v in launches.values()), f"main: kernel launches {launches}")
-    require(launches == launches_plain and res.n_iter == res_plain.n_iter,
-            f"main: launches {launches} in {res.n_iter} iterations, the plain loop "
-            f"{launches_plain} in {res_plain.n_iter}")
+    require(launches == launches_steps and res.n_iter == res_steps.n_iter,
+            f"main: launches {launches} in {res.n_iter} iterations, the eager steps "
+            f"{launches_steps} in {res_steps.n_iter}")
     emit({"phase": "main", "n": 4096, "m0": 48, "nodes": 16, "tol": 1e-10,
           "inside": int(len(lam)), "iterations": res.n_iter,
           "max_residual_host_f64": float(rr.max()), "warmup_wall_s": warm,
@@ -973,7 +978,7 @@ def phase_main(torch, ft, dev, refs, reps=3):
           "factor_s": factor_s,
           "sweeps_s": best - factor_s,
           "per_sweep_s": (best - factor_s) / max(res.n_iter, 1),
-          "launches_per_solve": launches, "launches_plain_loop": launches_plain,
+          "launches_per_solve": launches, "launches_eager_steps": launches_steps,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
     refs["main"] = {"lam": lam[np.argsort(lam.real)], "n_iter": res.n_iter}
     return launches, int(len(lam))
@@ -1019,71 +1024,48 @@ def read_cost_ms(torch, prog, sweeps, reps=2):
 
 
 def phase_compiled_graph(torch, ft, dev, smi, refs, reps=3):
-    """feast_compiled's sweeps as CUDA graphs against the plain loop
-    (`_feast_compiled_plain`) on the main problem and on a B pencil at the
-    same n: a cold graph solve (capture and instantiation timed; its eager
-    sweeps warm the plain loop's ops too), reps solves of each in turns, a
-    warm graph solve under torch.profiler and the memory the cached
-    program holds; on the main problem also the cost of the host's status
-    read a sweep (`read_cost_ms`) and the plain loop's trace, the profile
-    phase's where it ran (`refs["plain_trace"]`).  The two must run the same iterations and
-    inside count, agree to 1e-12 relative and launch K1 and K2 as often;
-    on the main problem the graphs' warm solve makes at most 5% of the
-    plain loop's launch calls, and each tier runs as many sweeps in both."""
+    """feast_compiled's sweeps as CUDA graphs against the same steps run
+    eagerly (`_feast_compiled_steps`) on the main problem and on a B pencil
+    at the same n, one route after the other (the card holds one program,
+    so a call of the other route builds its own): an eager solve that
+    builds the program, reps eager solves, a cold graph solve (capture and
+    instantiation timed), reps graph solves, a warm graph solve under
+    torch.profiler and the memory the cached program holds; on the main
+    problem also the cost of the host's status read a sweep
+    (`read_cost_ms`) and the eager steps' trace, the profile phase's where
+    it ran (`refs["steps_trace"]`).  The two must run the same iterations,
+    sweeps per tier and inside count, agree to 1e-12 relative and launch K1
+    and K2 as often; on the main problem the graphs' warm solve makes at
+    most 5% of the eager steps' launch calls."""
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
+    panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
+    schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
     A, X0, c, r = bench_problem()
     At, Xt = torch.as_tensor(A, device=dev), torch.as_tensor(X0, device=dev)
     kw = dict(c=c, r=r, nodes=16, iters=20, tol=1e-10, mixed_prec=True, device=dev)
-    Bh = pencil_B()
     out = {"phase": "compiled_graph", "card": smi}
-    rr_calls = []
-    rayleigh_ritz = fmod._rayleigh_ritz
-
-    def counted_rr(Q, *a, **k):
-        rr_calls.append(Q.dtype)
-        return rayleigh_ritz(Q, *a, **k)
-
-    fmod._rayleigh_ritz = counted_rr
-    try:
-        phase_compiled_graph_cases(torch, ft, fmod, dev, At, Xt, A, Bh, kw, out,
-                                   rr_calls, refs, reps)
-    finally:
-        fmod._rayleigh_ritz = rayleigh_ritz
-    emit(out)
-
-
-def phase_compiled_graph_cases(torch, ft, fmod, dev, At, Xt, A, Bh, kw, out, rr_calls,
-                               refs, reps):
-    panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
-    schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
-    for label, B in (("headline", None), ("B_pencil", Bh)):
+    for label, B in (("headline", None), ("B_pencil", pencil_B())):
         headline = B is None
         Bt = None if B is None else torch.as_tensor(B, device=dev)
 
         def graph():
             return ft.feast_compiled(At, Xt, B=Bt, **kw)
 
-        def plain():
-            return fmod._feast_compiled_plain(At, Xt, B=Bt, **kw)
+        def steps():
+            return fmod._feast_compiled_steps(At, Xt, B=Bt, **kw)
 
         def run(fn):
             panel_lu.launches = 0
             schur_kernel.launches = 0
-            rr_calls.clear()
             torch.cuda.reset_peak_memory_stats(dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = fn()
             torch.cuda.synchronize()
-            info = {"wall_s": time.perf_counter() - t0,
-                    "k1": panel_lu.launches, "k2": schur_kernel.launches,
-                    "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-            # each tier's sweeps: the graphs' program, or the plain loop's
-            # Rayleigh-Ritz calls by dtype
-            info["sweeps"] = (list(next(iter(fmod._PROGRAMS.values())).sweeps)
-                              if fn is graph else [rr_calls.count(torch.complex64),
-                                                   rr_calls.count(torch.complex128)])
-            return res, info
+            return res, {"wall_s": time.perf_counter() - t0,
+                         "k1": panel_lu.launches, "k2": schur_kernel.launches,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                         "sweeps": list(next(iter(fmod._PROGRAMS.values())).sweeps)}
 
         steps_s = {}
         t_step = time.perf_counter()
@@ -1096,29 +1078,30 @@ def phase_compiled_graph_cases(torch, ft, fmod, dev, At, Xt, A, Bh, kw, out, rr_
 
         fmod.clear_graph_cache()
         torch.cuda.empty_cache()
+        run(steps)
+        lap("steps_cold")
+        if headline and "steps_trace" not in refs:    # the profile phase's, else here
+            refs["steps_trace"] = traced(torch, steps, cpu=False)
+            lap("steps_traced")
+        tp = refs["steps_trace"] if headline else None
+        walls = {"graph": [], "steps": []}
+        for _ in range(reps):
+            res_s, warm_steps = run(steps)
+            walls["steps"].append(warm_steps["wall_s"])
+        lap("steps_reps")
+        fmod.clear_graph_cache()
+        torch.cuda.empty_cache()
         res_g, cold = run(graph)
         prog = next(iter(fmod._PROGRAMS.values()))
         cold.update(capture_s=prog.capture_s, instantiate_s=prog.instantiate_s,
                     replays=prog.replays)
         lap("cold")
-        if headline and "plain_trace" not in refs:    # the profile phase's, else here
-            refs["plain_trace"] = traced(torch, plain, cpu=False)
-            lap("plain_traced")
-        tp = refs["plain_trace"] if headline else None
-        walls = {"graph": [], "plain": []}
-        for i in range(reps):                  # in turns: plain, graph, graph, plain, ...
-            order = (("plain", plain), ("graph", graph))
-            for route, fn in (order if i % 2 == 0 else order[::-1]):
-                before = prog.replays
-                res, info = run(fn)
-                walls[route].append(info["wall_s"])
-                if route == "graph":
-                    warm_graph = dict(info, replays=prog.replays - before)
-                    res_g = res
-                else:
-                    warm_plain = info
-                    res_p = res
-        lap("reps")
+        for _ in range(reps):
+            before = prog.replays
+            res_g, info = run(graph)
+            walls["graph"].append(info["wall_s"])
+            warm_graph = dict(info, replays=prog.replays - before)
+        lap("graph_reps")
         tg = traced(torch, graph, cpu=False)
         lap("graph_traced")
         if headline:
@@ -1133,19 +1116,19 @@ def phase_compiled_graph_cases(torch, ft, fmod, dev, At, Xt, A, Bh, kw, out, rr_
                                                       torch.cuda.memory_reserved(dev)))]
 
         lam_g, rr_g = pencil_residuals(A, B, res_g)
-        lam_p, rr_p = pencil_residuals(A, B, res_p)
-        lam_g, lam_p = lam_g[np.argsort(lam_g.real)], lam_p[np.argsort(lam_p.real)]
-        same_count = len(lam_g) == len(lam_p)
-        diff = float(np.max(np.abs(lam_g - lam_p) / np.abs(lam_p))) if same_count else np.inf
-        row = {"inside": len(lam_g), "inside_plain": len(lam_p),
-               "n_iter": res_g.n_iter, "n_iter_plain": res_p.n_iter,
-               "max_relerr_vs_plain": diff,
-               "bit_equal": bool(same_count and np.array_equal(lam_g, lam_p)),
+        lam_s, rr_s = pencil_residuals(A, B, res_s)
+        lam_g, lam_s = lam_g[np.argsort(lam_g.real)], lam_s[np.argsort(lam_s.real)]
+        same_count = len(lam_g) == len(lam_s)
+        diff = float(np.max(np.abs(lam_g - lam_s) / np.abs(lam_s))) if same_count else np.inf
+        row = {"inside": len(lam_g), "inside_steps": len(lam_s),
+               "n_iter": res_g.n_iter, "n_iter_steps": res_s.n_iter,
+               "max_relerr_vs_steps": diff,
+               "bit_equal": bool(same_count and np.array_equal(lam_g, lam_s)),
                "max_residual_host_f64": float(rr_g.max()),
-               "max_residual_plain_host_f64": float(rr_p.max()),
-               "cold": cold, "warm_graph": warm_graph, "warm_plain": warm_plain,
-               "graph_walls_s": walls["graph"], "plain_walls_s": walls["plain"],
-               "graph_best_s": min(walls["graph"]), "plain_best_s": min(walls["plain"]),
+               "max_residual_steps_host_f64": float(rr_s.max()),
+               "cold": cold, "warm_graph": warm_graph, "warm_steps": warm_steps,
+               "graph_walls_s": walls["graph"], "steps_walls_s": walls["steps"],
+               "graph_best_s": min(walls["graph"]), "steps_best_s": min(walls["steps"]),
                "graph_launch_calls": tg["launch_calls"], "graph_launches": tg["graph_launches"],
                "graph_device_idle_share": tg["device_idle_share"],
                "graph_kernel_count": tg["kernel_count"],
@@ -1154,34 +1137,35 @@ def phase_compiled_graph_cases(torch, ft, fmod, dev, At, Xt, A, Bh, kw, out, rr_
                "cache_allocated_gb": held[0], "cache_reserved_gb": held[1],
                "steps_s": steps_s}
         if headline:
-            row.update(plain_launch_calls=tp["launch_calls"],
-                       plain_device_idle_share=tp["device_idle_share"],
-                       plain_kernel_count=tp["kernel_count"],
-                       plain_profiled_wall_s=tp["wall_s"],
+            row.update(steps_launch_calls=tp["launch_calls"],
+                       steps_device_idle_share=tp["device_idle_share"],
+                       steps_kernel_count=tp["kernel_count"],
+                       steps_profiled_wall_s=tp["wall_s"],
                        status_read_ms_per_sweep=read_ms)
         out[label] = row
         what = f"compiled_graph {label}"
-        require(res_g.converged and res_p.converged, f"{what}: not converged")
-        require(res_g.n_iter == res_p.n_iter and same_count,
-                f"{what}: {res_g.n_iter} iterations and {len(lam_g)} inside, the plain "
-                f"loop {res_p.n_iter} and {len(lam_p)}")
-        require(diff <= 1e-12, f"{what}: eigenvalues {diff} relative from the plain loop")
-        require(rr_g.max() < 1e-10 and rr_p.max() < 1e-10,
-                f"{what}: host residuals {rr_g.max()}, plain {rr_p.max()}")
+        require(res_g.converged and res_s.converged, f"{what}: not converged")
+        require(res_g.n_iter == res_s.n_iter and same_count,
+                f"{what}: {res_g.n_iter} iterations and {len(lam_g)} inside, the eager "
+                f"steps {res_s.n_iter} and {len(lam_s)}")
+        require(diff <= 1e-12, f"{what}: eigenvalues {diff} relative from the eager steps")
+        require(rr_g.max() < 1e-10 and rr_s.max() < 1e-10,
+                f"{what}: host residuals {rr_g.max()}, eager steps {rr_s.max()}")
         for info in (cold, warm_graph):
-            require(info["k1"] == warm_plain["k1"] and info["k2"] == warm_plain["k2"],
-                    f"{what}: K1 {info['k1']}, K2 {info['k2']} launches, the plain loop "
-                    f"{warm_plain['k1']}, {warm_plain['k2']}")
+            require(info["k1"] == warm_steps["k1"] and info["k2"] == warm_steps["k2"],
+                    f"{what}: K1 {info['k1']}, K2 {info['k2']} launches, the eager steps "
+                    f"{warm_steps['k1']}, {warm_steps['k2']}")
         require(warm_graph["replays"] > 0, f"{what}: no graph replayed")
         if headline:
             require(tg["launch_calls"] <= 0.05 * tp["launch_calls"],
-                    f"{what}: {tg['launch_calls']} launch calls, the plain loop "
+                    f"{what}: {tg['launch_calls']} launch calls, the eager steps "
                     f"{tp['launch_calls']}")
-        require(cold["sweeps"] == warm_graph["sweeps"] == warm_plain["sweeps"],
+        require(cold["sweeps"] == warm_graph["sweeps"] == warm_steps["sweeps"],
                 f"{what}: sweeps per tier {cold['sweeps']}, {warm_graph['sweeps']}, the "
-                f"plain loop {warm_plain['sweeps']}")
-        del Bt, res_g, res_p, res
+                f"eager steps {warm_steps['sweeps']}")
+        del Bt, res_g, res_s
     fmod.clear_graph_cache()
+    emit(out)
 
 
 def lu_backward_error(torch, A, LU, perm, count):
@@ -1355,12 +1339,13 @@ def top_kernels(tr, k=12, width=70):
 
 
 def phase_profile(torch, ft, dev, refs):
-    """Two more main-path solves through the plain loop
-    (`_feast_compiled_plain`): one with each driver phase wrapped in a
-    synchronized host timer (factor, orthonormalization, Rayleigh-Ritz and
-    its small eig, node update; the graphs' steps have no host boundaries
-    to time), one under torch.profiler (device idle share, launch calls,
-    top kernels), which `compiled_graph` holds the graphs' trace to."""
+    """Two more main-path solves through the sweep program's steps run
+    eagerly (`_feast_compiled_steps`): one with each driver phase wrapped
+    in a synchronized host timer (factor, orthonormalization, the
+    Rayleigh-Ritz step, which holds an orthonormalization, and its small
+    eig, node update; the graphs' replays have no host boundaries inside
+    a step), one under torch.profiler (device idle share, launch calls, top
+    kernels), which `compiled_graph` holds the graphs' trace to."""
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
     A, X0, c, r = bench_problem()
     At, Xt = torch.as_tensor(A, device=dev), torch.as_tensor(X0, device=dev)
@@ -1368,7 +1353,7 @@ def phase_profile(torch, ft, dev, refs):
 
     phases = {}
     wrapped = [(fmod, "_factor_scan"), (fmod.qrmod, "orthonormalize"),
-               (fmod, "_rayleigh_ritz"), (fmod.eigmod, "eig"),
+               (fmod, "_rr_step"), (fmod.eigmod, "eig"), (fmod.eigmod, "_eig_flagged"),
                (fmod, "_node_update_scan")]
     saved = [getattr(m, name) for m, name in wrapped]
 
@@ -1387,15 +1372,16 @@ def phase_profile(torch, ft, dev, refs):
         setattr(m, name, timer(fn, name))
     try:
         t0 = time.perf_counter()
-        fmod._feast_compiled_plain(At, Xt, **kw)
+        fmod._feast_compiled_steps(At, Xt, **kw)
         torch.cuda.synchronize()
         wall_timed = time.perf_counter() - t0
     finally:
         for (m, name), fn in zip(wrapped, saved):
             setattr(m, name, fn)
-    tr = traced(torch, lambda: fmod._feast_compiled_plain(At, Xt, **kw), cpu=False)
-    refs["plain_trace"] = tr
-    emit({"phase": "profile", "route": "_feast_compiled_plain", "timed_wall_s": wall_timed,
+    tr = traced(torch, lambda: fmod._feast_compiled_steps(At, Xt, **kw), cpu=False)
+    fmod.clear_graph_cache()
+    refs["steps_trace"] = tr
+    emit({"phase": "profile", "route": "_feast_compiled_steps", "timed_wall_s": wall_timed,
           "phase_wall_s": {k: {"s": v[0], "calls": v[1]} for k, v in phases.items()},
           "profiled_wall_s": tr["wall_s"], "device_busy_s": tr["device_busy_s"],
           "device_idle_share": tr["device_idle_share"],
@@ -2204,16 +2190,15 @@ def phase_orchestrate(torch, ft, dev, refs, smi):
 
 class Split:
     """Inside the block, the stacked-slice driver's stochastic count
-    (`spectral_slices`) and factor (the program's `_factor_into`, the plain
-    loop's `_factor_scan`) are timed, each synchronized at its end; `s`
+    (`spectral_slices`) and factor (the program's `_factor_into`) are
+    timed, each synchronized at its end; `s`
     holds the seconds of the last call.  The count also resets the peak
     memory statistics at its end, with the memory then allocated in
     `base`: the peak after it is the factor's and the loop's."""
 
     def __init__(self, torch, sl):
         self.torch, self.sl, self.s, self.base = torch, sl, {}, 0
-        self.names = {"spectral_slices": "spectral_slices", "_factor_into": "factor",
-                      "_factor_scan": "factor"}
+        self.names = {"spectral_slices": "spectral_slices", "_factor_into": "factor"}
 
     def _timed(self, fn, key):
         def run(*a, **k):
@@ -2441,12 +2426,12 @@ def _bit_equal(a, b):
 
 
 def parallel_compiled(torch, ft, fmod, mesh, refs, calls, call, reps=3):
-    """feast_compiled(mesh=) on the headline, its sweeps graphs with the
-    node all-reduce captured: a cold call (capture timed), then reps warm
-    calls of the graphs and of the plain loop under the same mesh in turns
-    (plain, graph, graph, plain, ...), one warm graph call under the
-    profiler; bit for bit the plain loop, with its K1 and K2 launches, and
-    main's eigenvalues to 1e-12 with main's iterations."""
+    """feast_compiled(mesh=) on the headline: reps calls of its steps run
+    eagerly, then its sweeps as graphs with the node all-reduce captured, a
+    cold call (capture timed) and reps warm calls (one route after the
+    other: the card holds one program), one warm graph call under the
+    profiler; bit for bit the eager steps, with their K1 and K2 launches,
+    and main's eigenvalues to 1e-12 with main's iterations."""
     A, X0, c, r = bench_problem()
     At, Xt = torch.as_tensor(A, device="cuda"), torch.as_tensor(X0, device="cuda")
     kw = dict(c=c, r=r, nodes=16, iters=20, tol=1e-10, mixed_prec=True, mesh=mesh,
@@ -2455,11 +2440,24 @@ def parallel_compiled(torch, ft, fmod, mesh, refs, calls, call, reps=3):
     def graph():
         return ft.feast_compiled(At, Xt, **kw)
 
-    def plain():
-        return fmod._feast_compiled_plain(At, Xt, **kw)
+    def steps():
+        return fmod._feast_compiled_steps(At, Xt, **kw)
+
+    walls = {"graph": [], "steps": []}
+    launches = {"graph": set(), "steps": set()}
+
+    def timed(route, fn):
+        out = call(f"feast_compiled_{route}", fn)
+        got = calls.pop(f"feast_compiled_{route}")
+        walls[route].append(got["wall_s"])
+        launches[route].add((got["k1_launches"], got["k2_launches"]))
+        return out
 
     fmod.clear_graph_cache()
     torch.cuda.empty_cache()
+    for _ in range(reps):
+        res_s = timed("steps", steps)
+    fmod.clear_graph_cache()
     res = call("feast_compiled", graph)
     prog = next(iter(fmod._PROGRAMS.values()))
     require(prog.graphs and prog.replays > 0,
@@ -2467,19 +2465,8 @@ def parallel_compiled(torch, ft, fmod, mesh, refs, calls, call, reps=3):
     info = dict(calls["feast_compiled"], capture_s=prog.capture_s,
                 instantiate_s=prog.instantiate_s, replays_cold=prog.replays,
                 sweeps=list(prog.sweeps))
-    walls = {"graph": [], "plain": []}
-    launches = {"graph": set(), "plain": set()}
-    for i in range(reps):
-        order = (("plain", plain), ("graph", graph))
-        for route, fn in (order if i % 2 == 0 else order[::-1]):
-            out = call(f"feast_compiled_{route}", fn)
-            got = calls.pop(f"feast_compiled_{route}")
-            walls[route].append(got["wall_s"])
-            launches[route].add((got["k1_launches"], got["k2_launches"]))
-            if route == "plain":
-                res_p = out
-            else:
-                res = out
+    for _ in range(reps):
+        res = timed("graph", graph)
     tr = traced(torch, graph, cpu=False)
     held = torch.cuda.memory_allocated()
     fmod.clear_graph_cache()
@@ -2491,16 +2478,16 @@ def parallel_compiled(torch, ft, fmod, mesh, refs, calls, call, reps=3):
     require(res.converged and res.n_iter == ref["n_iter"] and diff < 1e-12,
             f"parallel: feast_compiled n_iter {res.n_iter} against {ref['n_iter']}, "
             f"eigenvalues {diff} from main's")
-    require(_bit_equal(res, res_p), "parallel: feast_compiled(mesh=) graphs differ from "
-            "the plain loop under the same mesh")
-    require(len(launches["graph"]) == 1 and launches["graph"] == launches["plain"]
+    require(_bit_equal(res, res_s), "parallel: feast_compiled(mesh=) graphs differ from "
+            "the eager steps under the same mesh")
+    require(len(launches["graph"]) == 1 and launches["graph"] == launches["steps"]
             and (info["k1_launches"], info["k2_launches"]) in launches["graph"],
             f"parallel: feast_compiled(mesh=) K1, K2 launches {launches}, cold "
             f"{info['k1_launches']}, {info['k2_launches']}")
     calls["feast_compiled"] = dict(
         info, iterations=res.n_iter, inside=len(lam), max_diff_vs_main=diff,
-        bit_equal_plain=True, graph_walls_s=walls["graph"], plain_walls_s=walls["plain"],
-        graph_best_s=min(walls["graph"]), plain_best_s=min(walls["plain"]),
+        bit_equal_steps=True, graph_walls_s=walls["graph"], steps_walls_s=walls["steps"],
+        graph_best_s=min(walls["graph"]), steps_best_s=min(walls["steps"]),
         graph_launch_calls=tr["launch_calls"], graph_launches=tr["graph_launches"],
         graph_device_idle_share=tr["device_idle_share"], graph_profiled_wall_s=tr["wall_s"],
         cache_allocated_gb=held)
@@ -2528,15 +2515,15 @@ def check_sliced(label, out, H, want, tol):
 def parallel_sliced(torch, ft, fmod, mesh, world, refs, calls, call, reps=3):
     """feast_sliced (node mesh), then feast_sliced_parallel (slice mesh) on
     dense_variants' Hermitian matrix over (0.5, 100.5) in 4 slices: the
-    program's graphs (mixed_prec) cold, then 3 warm calls with the plain
-    loop (`_feast_sliced_parallel_plain`) once among them, and the
+    program's graphs (mixed_prec) cold, then 3 warm calls, then its steps
+    run eagerly (`_feast_sliced_parallel_steps`) once, and the
     full-precision call on the graphs.  Each call split into the
     stochastic count, the factor and the loop; the graphs' capture,
     sweeps, fallbacks, status-read cost, launch calls (two sweeps of
     replays under the profiler), peak memory against the factor store and
     the bytes the cached program holds.  Per slice the graphs and the
-    plain loop run the same sweeps and converge alike, eigenvalues within
-    1e-12 relative; the graphs launch K2 once a batched sweep."""
+    eager steps give the same bits; the graphs launch K2 once a batched
+    sweep."""
     from torch.distributed.device_mesh import init_device_mesh
 
     sl = importlib.import_module("feast_tpu_torch.parallel.slicing")
@@ -2577,9 +2564,6 @@ def parallel_sliced(torch, ft, fmod, mesh, world, refs, calls, call, reps=3):
                 store_gb=store_gb)
     walls, warm = [], None
     for i in range(reps):
-        if i == 1:     # the plain loop once, between the warm graph calls
-            res_p = run("feast_sliced_parallel_plain", lambda: sl._feast_sliced_parallel_plain(
-                Ht, (lo, hi), 4, mesh=smesh, mixed_prec=True, **skw))
         before = prog.replays
         res_w = run("feast_sliced_parallel_warm", graph())
         walls.append(calls["feast_sliced_parallel_warm"]["wall_s"])
@@ -2600,22 +2584,13 @@ def parallel_sliced(torch, ft, fmod, mesh, world, refs, calls, call, reps=3):
     fmod.clear_graph_cache()
     del prog
     held = (held - torch.cuda.memory_allocated()) / 1e9
-    plain = calls["feast_sliced_parallel_plain"]
-    # per slice its eigenvalues, the converged pairs the merge keeps (a
-    # value parked at the cap is no eigenvalue: its Ritz value mixes two
-    # outside ones and moves with rounding)
-    diffs = []
-    for g, p in zip(res_g.per_slice, res_p.per_slice):
-        require(g.n_iter == p.n_iter and g.converged == p.converged,
-                f"parallel: sliced graphs {g.n_iter} sweeps ({g.converged}), the plain "
-                f"loop {p.n_iter} ({p.converged})")
-        lg, lp = (np.sort(lam[res < skw["tol"]].real)
-                  for lam, _, res in (g.filtered(), p.filtered()))
-        require(len(lg) == len(lp), f"parallel: sliced graphs {len(lg)} converged, plain "
-                f"{len(lp)}")
-        diffs.append(float(np.max(np.abs(lg - lp) / np.abs(lp))) if len(lp) else 0.0)
-    cold["max_relerr_vs_plain_by_slice"] = diffs
-    require(max(diffs) <= 1e-12, f"parallel: sliced graphs {diffs} relative from the plain loop")
+    # the same steps run eagerly: per slice the graphs' sweeps and bits
+    res_s = run("feast_sliced_parallel_steps", lambda: sl._feast_sliced_parallel_steps(
+        Ht, (lo, hi), 4, mesh=smesh, mixed_prec=True, **skw))
+    fmod.clear_graph_cache()
+    steps = calls["feast_sliced_parallel_steps"]
+    require(all(_bit_equal(a, b) for a, b in zip(res_g.per_slice, res_s.per_slice)),
+            "parallel: the sliced graphs differ from their steps run eagerly")
     require(all(_bit_equal(a, b) for a, b in zip(res_g.per_slice, res_w.per_slice)),
             "parallel: a warm sliced graph call differs from the cold one")
     rank, count = torch.distributed.get_rank(), 4 // world     # this rank's slices
@@ -2623,9 +2598,9 @@ def parallel_sliced(torch, ft, fmod, mesh, world, refs, calls, call, reps=3):
             == max(r.n_iter for r in res_g.per_slice[rank * count:(rank + 1) * count]),
             f"parallel: sliced graphs K2 {cold['k2_launches']}, {warm['k2_launches']} in "
             f"{cold['sweeps']} sweeps")
-    require(cold["k1_launches"] == warm["k1_launches"] == plain["k1_launches"],
-            f"parallel: sliced K1 {cold['k1_launches']}, {warm['k1_launches']}, plain "
-            f"{plain['k1_launches']}")
+    require(cold["k1_launches"] == warm["k1_launches"] == steps["k1_launches"],
+            f"parallel: sliced K1 {cold['k1_launches']}, {warm['k1_launches']}, eager "
+            f"steps {steps['k1_launches']}")
     # no second copy of the store: above it only the factor's temporaries
     # (chunks of at most 4 GiB, ops/lu.py::batch_chunks) and small buffers
     require(cold["peak_factor_loop_gb"] < store_gb + 4.3 + 1.5,

@@ -181,6 +181,12 @@ def _auto_block(n: int) -> int:
     return 64 if n <= 512 else 128
 
 
+def _solve_block(n: int) -> int:
+    """The diagonal-block size of the drivers' repeated solves
+    (`lu_diag_inv`): 512 above n = 4096, else the panel width."""
+    return 512 if n > 4096 else _auto_block(n)
+
+
 # The panel route of complex64 CUDA factors under loop="auto", the JAX
 # package's switch (feast_tpu/ops/lu.py:376): "pallas" takes the panel
 # kernel, "xla" the plain blocked loop.

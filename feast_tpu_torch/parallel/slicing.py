@@ -9,13 +9,13 @@ eigenpairs, dropping near-boundary duplicates by residual;
 mesh dimension its share: the rank factors all its slices' nodes in one
 call, runs their refinement loops together on a leading slice axis, as the
 JAX package's vmapped while_loop does, and one all-gather of the
-eigenpairs is the only traffic between slice groups.  On the card that
-loop is one program (`_SlicedProgram`): a sweep of all the rank's slices
-is two CUDA graphs, the Rayleigh-Ritz (one K2 launch for the S reduced
-matrices, per-slice stop flags and eig guards) and the node update over
-the S x nodes factor store, with one (2, S) status read a sweep; the CPU
-and the options outside `solvers.feast._graph_scope` run the slices one
-after the other (`_feast_sliced_parallel_plain`).
+eigenpairs is the only traffic between slice groups.  That loop is one
+program (`_SlicedProgram`): a sweep of all the rank's slices is two steps,
+the Rayleigh-Ritz (one K2 launch for the S reduced matrices on the card,
+per-slice stop flags and eig guards) and the node update over the S x
+nodes factor store, with one (2, S) status read a sweep.  On the card the
+steps are CUDA graphs; the CPU and the options outside
+`solvers.feast._graph_scope` run them eagerly.
 
 Differences from the JAX package:
   * the merged result holds the converged pairs only (inside, residual
@@ -53,8 +53,8 @@ from .. import contour as ct
 from ..ops import eig as eigmod
 from ..ops import lu as lumod
 from ..solvers.feast import (_PROGRAMS, FeastResult, _backend_key, _factor_into,
-                             _factor_scan, _graph_scope, _node_update_scan, _Program,
-                             _ritz_pairs, _rr_step, _status, clear_graph_cache)
+                             _graph_scope, _node_update_scan, _Program, _ritz_pairs,
+                             _rr_step, _status, clear_graph_cache)
 
 
 class SliceResult(NamedTuple):
@@ -149,33 +149,6 @@ def feast_sliced(A, interval: Tuple[float, float], n_slices: int, B=None, *,
                        per_slice)
 
 
-def _run_slices(A, B, LU, perm, dinv, z, w, Q, contours, iters, tol, solve_dtype):
-    """The refinement loops of stacked slices against one factor store
-    (LU, perm and the dinv pair stacked slice-major over slices x nodes): each slice
-    iterates until its own stop, as the JAX package's vmapped while_loop
-    does.  Returns a FeastResult per slice."""
-    from ..ops import qr as qrmod
-    from ..solvers.feast import FeastResult, _in_mask, _node_update_scan, _rayleigh_ritz
-
-    N = z.shape[1]
-    out = []
-    for s, k in enumerate(contours):
-        blk = slice(s * N, (s + 1) * N)
-        Qs, it, done = Q[s], 0, False
-        while not done and it <= iters:
-            Qo = qrmod.orthonormalize(Qs, method="cholqr2")
-            lam, X, R, res = _rayleigh_ritz(Qo, A, B)
-            inside = _in_mask(lam, k.kind, k.params)
-            done = bool(inside.any()) and float(torch.max(torch.where(inside, res, 0.0))) < tol
-            if not done:
-                Qs = _node_update_scan(LU[blk], perm[blk], z[s], w[s], X, R, lam,
-                                       solve_dtype, A, B,
-                                       dinvb=tuple(d[blk] for d in dinv))
-            it += 1
-        out.append(FeastResult(lam, X, res, inside, it, done))
-    return out
-
-
 class _SlicedProgram(_Program):
     """The sweeps of `feast_sliced_parallel`'s stacked slices for one
     signature (`_sliced_key`), on static buffers: the JAX package's jit of
@@ -268,9 +241,9 @@ class _SlicedProgram(_Program):
 
     def run(self) -> list:
         """Every slice's FeastResult (lam, X, res, inside, n_iter, converged),
-        as the plain loop gives it: the update of a slice's last allowed
-        sweep, or of its done sweep, is dead, and the host replays the
-        update step only while some slice runs on."""
+        as its own loop would give it: the update of a slice's last allowed
+        sweep, or of its done sweep, is dead, and the host runs the update
+        step only while some slice runs on."""
         b, iters = self.buf, self.iters
         b["it"].zero_()
         b["done"].zero_()
@@ -336,30 +309,22 @@ def feast_sliced_parallel(A, interval: Tuple[float, float], n_slices: int, B=Non
     all-gather over "slice" gives every rank every slice's eigenpairs.
     mesh=None runs every slice on this process's `device`.
 
-    On the card the rank's slices run as one program of CUDA graphs
-    (`_SlicedProgram`, cached with `feast_compiled`'s under
-    `solvers.clear_graph_cache`), the factor written straight into its
-    store; the CPU and the options outside `solvers.feast._graph_scope`
-    run the plain loop, the slices one after the other."""
-    return _sliced("auto", A, interval, n_slices, B, nodes=nodes, iters=iters, tol=tol,
+    The rank's slices run as one program (`_SlicedProgram`, cached with
+    `feast_compiled`'s under `solvers.clear_graph_cache`), the factor
+    written straight into its store: on the card its steps are CUDA
+    graphs; the CPU and the options outside `solvers.feast._graph_scope`
+    run them eagerly."""
+    return _sliced(True, A, interval, n_slices, B, nodes=nodes, iters=iters, tol=tol,
                    samples=samples, margin=margin, min_m0=min_m0, mesh=mesh, m0=m0,
                    seed=seed, dedup_tol=dedup_tol, mixed_prec=mixed_prec,
                    verbose=verbose, device=device)
 
 
-def _feast_sliced_parallel_plain(*args, **kw) -> SliceResult:
-    """`feast_sliced_parallel` through the plain loop on any device: the
-    slices one after the other, every op an eager launch, two host reads a
-    sweep (`_run_slices`).  The CPU runs it; `chip_smoke.py` holds the
-    graphs to it."""
-    return _sliced("plain", **_bind(args, kw))
-
-
 def _feast_sliced_parallel_steps(*args, **kw) -> SliceResult:
-    """`feast_sliced_parallel` through the sliced program run eagerly on any
+    """`feast_sliced_parallel` with its sliced program run eagerly on any
     device: the batched steps, static buffers and cache of the graphed
-    path, without graphs."""
-    return _sliced("steps", **_bind(args, kw))
+    path, without graphs.  Card tests hold the graphs to it."""
+    return _sliced(False, **_bind(args, kw))
 
 
 def _bind(args, kw) -> dict:
@@ -368,11 +333,11 @@ def _bind(args, kw) -> dict:
     return bound.arguments
 
 
-def _sliced(route, A, interval, n_slices, B, *, nodes, iters, tol, samples, margin,
+def _sliced(graphs, A, interval, n_slices, B, *, nodes, iters, tol, samples, margin,
             min_m0, mesh, m0, seed, dedup_tol, mixed_prec, verbose, device):
-    """route: "auto" (the program's graphs where `_graph_scope` allows,
-    else the plain loop), "plain", or "steps" (the program without
-    graphs)."""
+    """The rank's slices through their program, its steps captured as CUDA
+    graphs where `graphs` is true and `_graph_scope` allows, else run
+    eagerly."""
     from .._device import as_tensor, resolve_device
 
     if mesh is None:
@@ -408,17 +373,8 @@ def _sliced(route, A, interval, n_slices, B, *, nodes, iters, tol, samples, marg
     z = torch.stack([k.device_nodes(dt, dev) for k in mine])          # (S, N)
     w = torch.stack([k.device_weights(dt, dev) for k in mine])
     Q = as_tensor(X0[first:first + count], dt, dev)
-    if route == "auto":
-        route = "plain" if _graph_scope(dev, m0, "lu") else "graphs"
-    if route == "plain":
-        # one factor call over slices x nodes
-        LU, perm, dinv = _factor_scan(Ad, Bd, z.reshape(-1), bool(mixed_prec))
-        results = _run_slices(Ad, Bd, LU, perm, dinv, z, w, Q, mine, iters, tol,
-                              torch.complex64 if mixed_prec else None)
-        del LU, perm, dinv
-    else:
-        results = _run_program(route == "graphs", Ad, Bd, Q, z, w, mine, int(iters),
-                               float(tol), bool(mixed_prec))
+    results = _run_program(graphs and _graph_scope(dev, m0, "lu") is None, Ad, Bd, Q, z,
+                           w, mine, int(iters), float(tol), bool(mixed_prec))
 
     if mesh is not None:
         # the only traffic between slice groups: every slice's pairs

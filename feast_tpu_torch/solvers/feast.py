@@ -14,13 +14,13 @@ mixed_prec the node matrices are factored in complex64 (the panel kernel
 on the card) and each solve is refined by 2 steps of complex128 iterative
 refinement, each residual one wide matmul over all nodes.
 
-`feast_compiled` is the JAX package's single-program loop: on the card its
-sweeps are CUDA graphs, captured once per signature and replayed, with the
-stop rules and the eig guard decided on the device (`_SweepProgram`; under
-`mesh=` the node all-reduce is a graph of its own after the update's); the
-CPU and the options `_graph_scope` names run the plain loop.  The sweep steps take a
-leading slice axis too, which `parallel/slicing.py`'s stacked-slice
-program runs.
+`feast_compiled` is the JAX package's single-program loop, one sweep
+program (`_SweepProgram`) with the stop rules and the eig guard decided on
+the device: on the card its sweeps are CUDA graphs, captured once per
+signature and replayed (under `mesh=` the node all-reduce is a graph of
+its own after the update's); the CPU and the options `_graph_scope` names
+run the same steps eagerly.  The sweep steps take a leading slice axis
+too, which `parallel/slicing.py`'s stacked-slice program runs.
 
 `pencil="hermitian"` (and `hermitian=True`) reduces through the complex
 `torch.linalg.eigh` (`ops/eigh.py`); `rr="host"` solves the m0 x m0
@@ -164,50 +164,36 @@ def _shifted_single(A, B, zi):
     return A - zi * B
 
 
-def _solve_block(n: int) -> int:
-    """The diagonal-block size of the repeated solves (`lu_diag_inv`)."""
-    return 512 if n > 4096 else lumod._auto_block(n)
-
-
 @tracing.spanned("feast.factor", "A", attrs=lambda A, B, z, solve_f32: {"nodes": z.shape[0]})
 def _factor_scan(A, B, z, solve_f32: bool):
     """Factor every node matrix A - z_i B, stacked on a leading node axis,
-    plus the diagonal-block inverses for the repeated solves.  Each node
-    matrix is formed in complex128 and cast into a `lumod.factor_buffer`,
-    as in the JAX package, and factored there in place: LU is a view of
-    that buffer, and the node matrices are never held twice.
-    Spans: "feast.factor" (with `nodes`, the node matrices this rank
-    factors), inside it "feast.factor.form" (the node matrices),
-    "feast.factor.lu" (with the row swaps' `moved_rows` and `gathered_rows`
-    on the kernel route, `lumod.lu_factor_inplace`) and
-    "feast.factor.diag_inv" (with `blocks` and `kernel_blocks`,
-    `lumod.lu_diag_inv`)."""
-    n = A.shape[0]
+    plus the diagonal-block inverses for the repeated solves, in a
+    `lumod.factor_buffer` of its own (`_factor_into`): LU is a view of that
+    buffer, and the node matrices are never held twice.  Span:
+    "feast.factor" (with `nodes`, the node matrices this rank factors)
+    around `_factor_into`'s."""
     dt = torch.complex64 if solve_f32 else A.dtype
-    S = lumod.factor_buffer(z.shape, n, dt, A.device)
-    with tracing.span("feast.factor.form", A.device):
-        for i in range(z.shape[0]):
-            S[i, :n, :n] = _shifted_single(A, B, z[i])
-    with tracing.span("feast.factor.lu", A.device) as sp:
-        LU, perm = lumod.lu_factor_inplace(S, n, span=sp)
-    with tracing.span("feast.factor.diag_inv", A.device) as sp:
-        dinv = lumod.lu_diag_inv(LU, _solve_block(n), span=sp)
-    return LU, perm, dinv
+    return _factor_into(lumod.factor_buffer(z.shape, A.shape[0], dt, A.device), A, B, z)
 
 
 def _factor_into(buf, A, B, z):
-    """`_factor_scan` into `buf`, a `lumod.factor_buffer` of z's length:
-    each node matrix formed in complex128 and cast into the buffer, then
-    factored in place, so the store is never held twice.  Returns (LU, a
-    view of `buf`; perm; the diagonal-block inverses).  A padded buffer
-    may be factored again: a factor leaves its padding zero.  Span:
-    "feast.factor.diag_inv", as in `_factor_scan`."""
+    """The node matrices A - z_i B factored in `buf`, a `lumod.factor_buffer`
+    of z's length: each formed in complex128 and cast into the buffer, as
+    in the JAX package, then factored in place.  Returns (LU, a view of
+    `buf`; perm; the diagonal-block inverses).  A padded buffer may be
+    factored again: a factor leaves its padding zero.
+    Spans: "feast.factor.form" (the node matrices), "feast.factor.lu" (with
+    the row swaps' `moved_rows` and `gathered_rows` on the kernel route,
+    `lumod.lu_factor_inplace`) and "feast.factor.diag_inv" (with `blocks`
+    and `kernel_blocks`, `lumod.lu_diag_inv`)."""
     n = A.shape[0]
-    for i in range(z.shape[0]):
-        buf[i, :n, :n] = _shifted_single(A, B, z[i])
-    LU, perm = lumod.lu_factor_inplace(buf, n)
+    with tracing.span("feast.factor.form", A.device):
+        for i in range(z.shape[0]):
+            buf[i, :n, :n] = _shifted_single(A, B, z[i])
+    with tracing.span("feast.factor.lu", A.device) as sp:
+        LU, perm = lumod.lu_factor_inplace(buf, n, span=sp)
     with tracing.span("feast.factor.diag_inv", A.device) as sp:
-        dinv = lumod.lu_diag_inv(LU, _solve_block(n), span=sp)
+        dinv = lumod.lu_diag_inv(LU, lumod._solve_block(n), span=sp)
     return LU, perm, dinv
 
 
@@ -345,8 +331,8 @@ def _factor_one(A, B, zi, solve_f32: bool, sblock: int):
 
 def _factor_hostloop(A, B, z, solve_f32: bool):
     """Per-node factors as a list of separate buffers."""
-    n = A.shape[0]
-    return [_factor_one(A, B, z[i], solve_f32, _solve_block(n)) for i in range(z.shape[0])]
+    sblock = lumod._solve_block(A.shape[0])
+    return [_factor_one(A, B, z[i], solve_f32, sblock) for i in range(z.shape[0])]
 
 
 def _solve_one(LU, perm, dinv, rhs, out_dtype=None):
@@ -645,32 +631,25 @@ def feast_compiled(A, X0, contour: Optional[ct.Contour] = None, *,
     fails it runs that sweep's Rayleigh-Ritz again with the full eig (JAX's
     lax.cond), and it replays no update for the sweep that stops.  Under
     mesh= the node all-reduce is captured as a graph of its own, replayed
-    after each update's.  The graphs are cached for the newest signature
-    only (`_program_key`).
-    Options whose sweep reads the host take the plain loop instead, by the
-    rule of `_graph_scope` (the CPU, pencils "qz" and "hermitian", an m0
-    outside 2..128, eig mode "full", Schur backend "torch"); a failure
-    inside a capture raises."""
-    return _compiled("auto", A, X0, contour, c=c, r=r, nodes=nodes, iters=iters,
+    after each update's.  The program and its graphs are cached for the
+    newest signature only (`_program_key`), and hold a copy of the factor
+    store.
+    Options whose sweep reads the host run the same program's steps
+    eagerly, by the rule of `_graph_scope` (the CPU, pencils "qz" and
+    "hermitian", an m0 outside 2..128, eig mode "full", Schur backend
+    "torch"); a failure inside a capture raises."""
+    return _compiled(True, A, X0, contour, c=c, r=r, nodes=nodes, iters=iters,
                      tol=tol, ortho=ortho, B=B, mesh=mesh, mixed_prec=mixed_prec,
                      pencil=pencil, hermitian=hermitian, node_scan=node_scan,
                      two_tier=two_tier, tol_mode=tol_mode, device=device)
 
 
-def _feast_compiled_plain(*args, **kw) -> FeastResult:
-    """`feast_compiled` through the plain loop on any device: every op an
-    eager launch, the host reading each sweep's residuals.  The CPU and the
-    options outside `_graph_scope` run it; `chip_smoke.py` holds the graphs
-    to it."""
-    return _compiled("plain", **_bind(args, kw))
-
-
 def _feast_compiled_steps(*args, **kw) -> FeastResult:
-    """`feast_compiled` through the sweep program run eagerly on any device:
+    """`feast_compiled` with its sweep program run eagerly on any device:
     the steps, static buffers and cache of the graphed path, without
-    graphs (pencil "lu"; mesh= too, its all-reduce a step after each
-    update)."""
-    return _compiled("steps", **_bind(args, kw))
+    graphs (mesh= too, its all-reduce a step after each update).  Card
+    tests hold the graphs to it."""
+    return _compiled(False, **_bind(args, kw))
 
 
 def _bind(args, kw) -> dict:
@@ -681,8 +660,8 @@ def _bind(args, kw) -> dict:
 
 def _graph_scope(device: torch.device, m0: int, pencil: str) -> Optional[str]:
     """None where `feast_compiled` (and `feast_sliced_parallel`, pencil
-    "lu") captures its sweeps as CUDA graphs, else why it runs the plain
-    loop.  This rule decides, never a caught capture error.  mesh= is no
+    "lu") captures its sweeps as CUDA graphs, else why it runs their steps
+    eagerly.  This rule decides, never a caught capture error.  mesh= is no
     reason: the dense drivers' one collective a sweep is the node sum, an
     NCCL all-reduce, which a graph of its own holds.
       - off the card there is nothing to capture;
@@ -692,7 +671,7 @@ def _graph_scope(device: torch.device, m0: int, pencil: str) -> Optional[str]:
         reduced eig is the plain Schur iteration, whose sweeps the host
         counts."""
     if device.type != "cuda":
-        return "the CPU runs the plain loop"
+        return "the CPU has no graphs"
     if pencil != "lu":
         return f"pencil {pencil!r} reads the host in its reduced eig"
     if eigmod._SCHUR_BACKEND != "cuda" or not eigmod._mixed_route(torch.complex128, m0,
@@ -703,40 +682,32 @@ def _graph_scope(device: torch.device, m0: int, pencil: str) -> Optional[str]:
 
 
 @tracing.spanned("feast.solve", "device")
-def _compiled(route, A, X0, contour, *, c, r, nodes, iters, tol, ortho, B, mesh,
+def _compiled(graphs, A, X0, contour, *, c, r, nodes, iters, tol, ortho, B, mesh,
               mixed_prec, pencil, hermitian, node_scan, two_tier, tol_mode,
               device) -> FeastResult:
-    """route: "auto" (graphs where `_graph_scope` allows, else the plain
-    loop), "plain", or "steps" (the sweep program without graphs).  The
-    span "feast.solve" is the root of the solve's spans."""
+    """The sweep program of the solve's signature, its steps captured as
+    CUDA graphs where `graphs` is true and `_graph_scope` allows, else run
+    eagerly.  The span "feast.solve" is the root of the solve's spans."""
     if hermitian:
         pencil = "hermitian"
-    A, B, Q, contour, z, w, node_sum = _prepare(A, B, X0, contour, c, r, nodes,
-                                                device, mesh)
+    A, B, Q, contour, z, w, _ = _prepare(A, B, X0, contour, c, r, nodes, device, mesh)
     tol = _resolve_tol(tol, tol_mode, contour)
     mixed = bool(mixed_prec)
     two_tier = mixed and (two_tier is None or bool(two_tier))
     iters = int(iters)
-    if route == "auto":
-        route = "plain" if _graph_scope(Q.device, Q.shape[1], pencil) else "graphs"
-    elif route == "steps" and pencil != "lu":
-        raise ValueError("the sweep program takes pencil 'lu'")
+    graphs = graphs and _graph_scope(Q.device, Q.shape[1], pencil) is None
     group = None if mesh is None else mesh.get_group("node")
     LUb, permb, dinvb = _factor_scan(A, B, z, mixed)
-    if route == "plain":
-        return _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour,
-                             iters, tol, ortho, mixed, two_tier, pencil,
-                             None if group is None else group.size())
-    graphs = route == "graphs"
-    key = _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs,
-                       group)
+    key = _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, pencil,
+                       graphs, group)
     prog = _PROGRAMS.get(key)
     if prog is None:
         clear_graph_cache()
         prog = _PROGRAMS[key] = _SweepProgram(
             graphs, Q.device, kind=contour.kind, params=contour.params, tol=tol,
-            ortho=ortho, mixed=mixed, two_tier=two_tier,
-            mixed_eig=eigmod._mixed_route(torch.complex128, Q.shape[1], Q.device),
+            ortho=ortho, mixed=mixed, two_tier=two_tier, pencil=pencil,
+            mixed_eig=(pencil == "lu"
+                       and eigmod._mixed_route(torch.complex128, Q.shape[1], Q.device)),
             mesh=mesh)
     prog.load(A, B, Q, LUb, permb, dinvb, z, w)
     del LUb, permb, dinvb
@@ -750,94 +721,18 @@ def _coarse_floor(A32: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.finfo(torch.float32).eps * cx.fro_norm(A32).double() / math.sqrt(n)
 
 
-def _node_sum_span(Q: torch.Tensor, tier: str, ranks: int):
-    """Span "feast.node_sum" of the sum of Q over `ranks` node ranks, with
-    the tier and the payload's `bytes`."""
-    return tracing.span("feast.node_sum", Q.device, tier=tier,
-                        bytes=Q.numel() * Q.element_size(), ranks=ranks)
-
-
-def _summed(node_sum, Q: torch.Tensor, tier: str, ranks) -> torch.Tensor:
-    """Q summed over the node ranks in its span; without a mesh (ranks
-    None) Q itself."""
-    if ranks is None:
-        return Q
-    with _node_sum_span(Q, tier, ranks):
-        return node_sum(Q)
-
-
-@tracing.spanned("feast.loop", "Q")
-def _plain_sweeps(A, B, Q, LUb, permb, dinvb, z, w, node_sum, contour, iters, tol,
-                  ortho, mixed, two_tier, pencil, ranks=None) -> FeastResult:
-    """The loop of `_feast_compiled_plain`: each sweep's residuals read on
-    the host.  Spans as `_SweepProgram.run`'s: "feast.loop" around both
-    tiers, "feast.rr" and "feast.update" around each sweep's steps, and
-    under a mesh of `ranks` node ranks "feast.node_sum" after each
-    update."""
-    kind, params = contour.kind, contour.params
-    n, m0 = Q.shape
-    dev = Q.device
-    it = 0
-    if two_tier:
-        f32 = torch.complex64
-        A32 = A.to(f32)
-        B32 = None if B is None else B.to(f32)
-        z32, w32 = z.to(f32), w.to(f32)
-        floor32 = float(_coarse_floor(A32))
-        Qc, prev, c_it, stop = Q.to(f32), np.inf, 0, False
-        while not stop and c_it < iters:
-            with tracing.span("feast.rr", dev, tier="c64"):
-                Qo = qrmod.orthonormalize(Qc, method=ortho)
-                lam, X, R, res = _rayleigh_ritz(Qo, A32, B32, pencil)
-                inside = _in_mask(lam, kind, params)
-            worst = float(torch.max(torch.where(inside, res, 0.0)))
-            any_in = bool(inside.any())
-            stop = ((c_it > 0 and worst > 0.5 * prev)
-                    or (any_in and worst <= floor32)
-                    or (c_it > 1 and not any_in))
-            if stop:
-                Qc = Qo
-            else:
-                with tracing.span("feast.update", dev, tier="c64"):
-                    Qc = _node_update_scan(LUb, permb, z32, w32, X, R, lam, None, A32,
-                                           B32, refine=0, dinvb=dinvb)
-                Qc = _summed(node_sum, Qc, "c64", ranks)
-            prev = worst
-            c_it += 1
-        Q = Qc.to(A.dtype)
-        it = max(c_it - 1, 0)  # the stopping sweep did no update
-    solve_dtype = torch.complex64 if mixed else None
-    lam = torch.zeros(m0, dtype=Q.dtype, device=Q.device)
-    X = torch.zeros((n, m0), dtype=Q.dtype, device=Q.device)
-    res = torch.zeros(m0, dtype=torch.float64, device=Q.device)
-    inside = torch.zeros(m0, dtype=torch.bool, device=Q.device)
-    done = False
-    while not done and it <= iters:
-        with tracing.span("feast.rr", dev, tier="c128"):
-            Qo = qrmod.orthonormalize(Q, method=ortho)
-            lam, X, R, res = _rayleigh_ritz(Qo, A, B, pencil)
-            inside = _in_mask(lam, kind, params)
-        worst = float(torch.max(torch.where(inside, res, 0.0)))
-        done = bool(inside.any()) and worst < tol
-        if not done and it < iters:  # the last allowed sweep's update is dead
-            with tracing.span("feast.update", dev, tier="c128"):
-                Q = _node_update_scan(LUb, permb, z, w, X, R, lam, solve_dtype, A, B,
-                                      dinvb=dinvb)
-            Q = _summed(node_sum, Q, "c128", ranks)
-        it += 1
-    return FeastResult(lam, X, res, inside, it, done)
-
-
 # ---------------------------------------------------------------------------
 # the sweep program: pure steps on static buffers, captured as CUDA graphs
 # ---------------------------------------------------------------------------
 
-def _rr_step(Q, A, B, ortho: str, kind: str, params, mixed_eig: bool):
-    """A sweep's Rayleigh-Ritz, reading nothing on the host: orthonormalize,
-    the reduced matrices, their eig (with mixed_eig the flagged mixed form,
-    else `_reduced_eig`'s "lu" path with ok true), the Ritz pairs, the
-    inside mask and the worst inside residual.  Returns (Qo, Aq, Bq, lam,
-    X, R, res, inside, worst, ok).
+def _rr_step(Q, A, B, ortho: str, kind: str, params, mixed_eig: bool,
+             pencil: str = "lu"):
+    """A sweep's Rayleigh-Ritz: orthonormalize, the reduced matrices, their
+    eig (with mixed_eig the flagged mixed form, else `_reduced_eig` of the
+    pencil with ok true), the Ritz pairs, the inside mask and the worst
+    inside residual.  Returns (Qo, Aq, Bq, lam, X, R, res, inside, worst,
+    ok).  Pencil "lu" reads nothing on the host; "qz" and "hermitian" do,
+    so their steps run eagerly (`_graph_scope`).
 
     Stacked slices: Q (S, n, m0) gives every output a leading S (worst and
     ok (S,), one K2 launch for the S reduced matrices on the card), and
@@ -850,10 +745,10 @@ def _rr_step(Q, A, B, ortho: str, kind: str, params, mixed_eig: bool):
                        else eigmod._gen_eig_flagged(Aq, Bq))
     else:
         if Aq.dim() == 2:
-            lam, Xq = _reduced_eig(Aq, Bq, "lu")
-        else:   # one slice at a time, as the plain loop reduces them
+            lam, Xq = _reduced_eig(Aq, Bq, pencil)
+        else:   # one slice at a time
             lam, Xq = (torch.stack(p) for p in zip(*(
-                _reduced_eig(Aq[s], None if Bq is None else Bq[s], "lu")
+                _reduced_eig(Aq[s], None if Bq is None else Bq[s], pencil)
                 for s in range(Aq.shape[0]))))
         ok = torch.ones(Q.shape[:-2], dtype=torch.bool, device=Q.device)
     lam, X, R, res = _ritz_pairs(Qo, A, B, lam, Xq)
@@ -885,8 +780,8 @@ def _backend_key() -> tuple:
             lumod._PANEL_BACKEND)
 
 
-def _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs,
-                 group=None):
+def _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, pencil,
+                 graphs, group=None):
     """The signature a sweep program and its graphs are cached under, as
     jax.jit caches per static argument and shape: every value the steps
     bake in, every backend switch that changes the captured ops, and under
@@ -894,7 +789,7 @@ def _program_key(A, B, Q, z, contour, iters, tol, ortho, mixed, two_tier, graphs
     cached program keeps the group alive, so its id is not reused)."""
     return (str(Q.device), Q.dtype, A.shape[0], Q.shape[1], z.shape[0], B is None,
             contour.kind, tuple(contour.params), iters, tol, ortho, mixed, two_tier,
-            graphs, None if group is None else id(group)) + _backend_key()
+            pencil, graphs, None if group is None else id(group)) + _backend_key()
 
 
 # the one sweep program of the newest signature, `feast_compiled`'s
@@ -1016,10 +911,11 @@ class _SweepProgram(_Program):
     in each tier (complex64, complex128)."""
 
     def __init__(self, graphs: bool, device, *, kind, params, tol, ortho, mixed,
-                 two_tier, mixed_eig, mesh=None):
+                 two_tier, pencil, mixed_eig, mesh=None):
         super().__init__(graphs, device)
         self.kind, self.params, self.tol, self.ortho = kind, params, tol, ortho
         self.mixed, self.two_tier, self.mixed_eig = mixed, two_tier, mixed_eig
+        self.pencil = pencil
         self.mesh = mesh
         self.ranks = None if mesh is None else mesh.get_group("node").size()
         self.sweeps = (0, 0)
@@ -1042,7 +938,8 @@ class _SweepProgram(_Program):
     def _coarse_rr(self):
         b = self.buf
         Qo, _, _, lam, X, R, _, inside, worst, ok = _rr_step(
-            b["Qc"], b["A32"], b.get("B32"), self.ortho, self.kind, self.params, False)
+            b["Qc"], b["A32"], b.get("B32"), self.ortho, self.kind, self.params, False,
+            self.pencil)
         stop = _coarse_stop(worst, inside, b["prev"], b["c_it"], b["floor32"])
         b["prev"].copy_(worst)
         b["c_it"].add_(1)
@@ -1062,7 +959,7 @@ class _SweepProgram(_Program):
         b = self.buf
         Qo, Aq, Bq, lam, X, R, res, inside, worst, ok = _rr_step(
             b["Q"], b["A"], b.get("B"), self.ortho, self.kind, self.params,
-            self.mixed_eig)
+            self.mixed_eig, self.pencil)
         done = inside.any() & (worst < self.tol)
         out = {"Qo": Qo, "Aq": Aq, "lam": lam, "X": X, "R": R, "res": res,
                "inside": inside, "status": _status(done, ok)}
@@ -1089,10 +986,13 @@ class _SweepProgram(_Program):
 
     def _sum_step(self, tier: str):
         """Under a mesh, the node sum after the tier's update: its step,
-        replayed in span "feast.node_sum"."""
+        replayed in span "feast.node_sum" with the tier, the payload's
+        `bytes` and the node `ranks`."""
         if self.mesh is None:
             return
-        with _node_sum_span(self.buf["Qc" if tier == "c64" else "Q"], tier, self.ranks):
+        Q = self.buf["Qc" if tier == "c64" else "Q"]
+        with tracing.span("feast.node_sum", Q.device, tier=tier,
+                          bytes=Q.numel() * Q.element_size(), ranks=self.ranks):
             self._step("coarse_sum" if tier == "c64" else "fine_sum")
 
     @tracing.spanned("feast.eig_fallback", lambda self, o: self.buf["Q"].device)

@@ -196,9 +196,8 @@ def _factor_chunk(T, z: torch.Tensor, sl: slice, mixed: bool) -> _Chunk:
         T.eval_nodes(z[sl], out_dtype=dt, out=buf[:, :n, :n])
     with tracing.span("nlfeast.factor.lu", z.device) as sp:
         LU, perm = lumod.lu_factor_inplace(buf, n, span=sp)
-    sblock = 512 if n > 4096 else lumod._auto_block(n)
     with tracing.span("nlfeast.factor.diag_inv", z.device) as sp:
-        dinv = lumod.lu_diag_inv(LU, sblock, span=sp)
+        dinv = lumod.lu_diag_inv(LU, lumod._solve_block(n), span=sp)
     return _Chunk(sl, LU, perm, dinv)
 
 

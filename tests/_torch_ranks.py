@@ -145,28 +145,27 @@ def dense_driver(driver, A, X0, B=None, Xl0=None, mesh_nodes=None, **kw):
 
 
 @case
-def compiled_routes(A, X0, **kw):
-    """feast_compiled(mesh=) through its plain loop and through its sweep
-    program run eagerly (the all-reduce inside the update step)."""
+def compiled_steps(A, X0, **kw):
+    """feast_compiled(mesh=) through its sweep program run eagerly (the
+    all-reduce a step after each update)."""
     import importlib
 
     import feast_tpu_torch as ft
 
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
     mesh = ft.parallel.node_mesh(device_type="cpu")
-    out = {route: _host(fn(A, X0, mesh=mesh, device="cpu", **kw)) for route, fn in
-           (("plain", fmod._feast_compiled_plain), ("steps", fmod._feast_compiled_steps))}
+    out = _host(fmod._feast_compiled_steps(A, X0, mesh=mesh, device="cpu", **kw))
     fmod.clear_graph_cache()
     return out
 
 
 @case
 def node_sum_spans(A, X0, device_type="cpu", **kw):
-    """feast_compiled(mesh=) through the plain loop, the sweep program run
-    eagerly and, on the card, its graphs (twice: capture, then replays),
-    each under `tracing.recording()`: the results, and per route the
-    `feast.update` and `feast.node_sum` spans (tier and attributes) and the
-    `nodes` of `feast.factor`."""
+    """feast_compiled(mesh=) through the sweep program run eagerly and, on
+    the card, its graphs (twice: capture, then replays), each under
+    `tracing.recording()`: the results, and per route the `feast.update`
+    and `feast.node_sum` spans (tier and attributes) and the `nodes` of
+    `feast.factor`."""
     import importlib
 
     import feast_tpu_torch as ft
@@ -174,7 +173,7 @@ def node_sum_spans(A, X0, device_type="cpu", **kw):
 
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
     mesh = ft.parallel.node_mesh(device_type=device_type)
-    routes = [("plain", fmod._feast_compiled_plain), ("steps", fmod._feast_compiled_steps)]
+    routes = [("steps", fmod._feast_compiled_steps)]
     if device_type == "cuda":
         routes += [("graphs", ft.feast_compiled), ("replays", ft.feast_compiled)]
     out = {}

@@ -1,13 +1,15 @@
 """`feast_compiled`'s single-program loop on the CPU: the sweep steps read
 nothing on the host, the eig guard's flag forms agree with the boolean
-`eig` / `gen_eig` and with the JAX package's guard, the step driver equals
-the plain loop bit for bit and JAX's `feast_compiled` to 1e-10, a cached
-program reads each solve's inputs, and the scope rule sends the options
-outside the graphs to the plain loop.
+`eig` / `gen_eig` and with the JAX package's guard, the step driver matches
+JAX's `feast_compiled` on the same inputs (eigenvalues and residuals to
+1e-10, the same n_iter and convergence), a cached program reads each
+solve's inputs, and the options outside the graphs' scope run the same
+program eagerly.
 
 On the card the steps are captured as CUDA graphs; here the same steps,
-static buffers and cache run eagerly (`_feast_compiled_steps`), and the
-patched Tensor methods stand for the capture: a host read raises.
+static buffers and cache run eagerly (`_feast_compiled_steps`, which the
+public driver is on the CPU), and the patched Tensor methods stand for the
+capture: a host read raises.
 """
 
 import gc
@@ -220,20 +222,44 @@ def _same(a, b):
             and all(torch.equal(x, y) for x, y in zip(a[:4], b[:4])))
 
 
+def _contour(pkg, kind):
+    return (pkg.circular_contour_trapezoidal(3.5, 2.2, 8) if kind == "circle"
+            else pkg.elliptical_contour_trapezoidal(3.5, 2.2, 1.0, 8))
+
+
+def _jax_run(contour="circle", with_b=True, mixed=True, two_tier=None, shift=0.0,
+             pencil="lu"):
+    """JAX's `feast_compiled` on `_problem()` (A shifted by shift I); a
+    configuration compiles once in this module."""
+    A, X0, B = _problem()
+    return jt.feast_compiled(A + shift * np.eye(A.shape[0]), X0, _contour(jt, contour),
+                             B=B if with_b else None, nodes=8, iters=20, tol=1e-10,
+                             mixed_prec=mixed, two_tier=two_tier, pencil=pencil)
+
+
+def _matches_jax(rt, rj):
+    """The same n_iter and convergence; the inside eigenvalues and their
+    residuals within 1e-10."""
+    assert rt.n_iter == int(rj.n_iter) and rt.converged == bool(rj.converged)
+    lt, _, rest = rt.filtered()
+    lj, _, resj = rj.filtered()
+    assert len(lt) == len(lj)
+    ot, oj = np.argsort(lt.real), np.argsort(lj.real)
+    np.testing.assert_allclose(lt[ot], lj[oj], rtol=0, atol=1e-10)
+    np.testing.assert_allclose(rest[ot], resj[oj], rtol=0, atol=1e-10)
+
+
 @pytest.mark.parametrize("contour", ["circle", "ellipse"])
 @pytest.mark.parametrize("with_b", [False, True], ids=["std", "pencil"])
 @pytest.mark.parametrize("mixed,two_tier", [(False, None), (True, False), (True, None)],
                          ids=["full", "mixed", "two_tier"])
-def test_step_driver_equals_plain_loop(mixed, two_tier, with_b, contour):
+def test_step_driver_matches_jax(mixed, two_tier, with_b, contour):
     A, X0, B = _problem()
-    kw = dict(nodes=8, iters=20, tol=1e-10, mixed_prec=mixed, two_tier=two_tier,
-              B=B if with_b else None, device="cpu")
-    C = (ft.circular_contour_trapezoidal(3.5, 2.2, 8) if contour == "circle"
-         else ft.elliptical_contour_trapezoidal(3.5, 2.2, 1.0, 8))
-    plain = tfeast._feast_compiled_plain(A, X0, C, **kw)
-    steps = tfeast._feast_compiled_steps(A, X0, C, **kw)
-    assert plain.converged and int(plain.inside.sum()) == 4
-    assert _same(steps, plain)
+    steps = tfeast._feast_compiled_steps(A, X0, _contour(ft, contour), nodes=8, iters=20,
+                                         tol=1e-10, mixed_prec=mixed, two_tier=two_tier,
+                                         B=B if with_b else None, device="cpu")
+    assert steps.converged and int(steps.inside.sum()) == 4
+    _matches_jax(steps, _jax_run(contour, with_b, mixed, two_tier))
     prog = next(iter(tfeast._PROGRAMS.values()))
     assert not prog.graphs
     if mixed and two_tier is None:
@@ -242,28 +268,31 @@ def test_step_driver_equals_plain_loop(mixed, two_tier, with_b, contour):
 
 
 @pytest.mark.parametrize("with_b", [False, True], ids=["std", "pencil"])
-def test_step_driver_equals_plain_loop_on_the_mixed_eig(forced_mixed, monkeypatch, with_b):
-    """With the card's mixed eig route the driver's flag forms decide as the
-    plain loop's `eig`; where every guard is forced to fail, both take the
-    full eig in every sweep and equal the loop without the mixed route."""
+def test_step_driver_matches_jax_on_the_mixed_eig(forced_mixed, monkeypatch, with_b):
+    """With the card's mixed eig route the driver's flag forms decide as
+    `eig` does and match JAX; where every guard is forced to fail, every
+    sweep takes the full eig and equals the program without the mixed
+    route bit for bit."""
     A, X0, B = _problem()
     kw = dict(c=3.5, r=2.2, nodes=8, iters=20, tol=1e-10, mixed_prec=True,
               B=B if with_b else None, device="cpu")
-    plain = tfeast._feast_compiled_plain(A, X0, **kw)
     steps = tfeast._feast_compiled_steps(A, X0, **kw)
     assert next(iter(tfeast._PROGRAMS.values())).mixed_eig
-    assert plain.converged and _same(steps, plain)
+    assert steps.converged
+    _matches_jax(steps, _jax_run(with_b=with_b))
 
     def failing(flagged):
         return lambda *a: (lambda lam, V, ok: (lam, V, ok & False))(*flagged(*a))
 
     monkeypatch.setattr(teig, "_eig_flagged", failing(teig._eig_flagged))
     monkeypatch.setattr(teig, "_gen_eig_flagged", failing(teig._gen_eig_flagged))
-    plain_fb = tfeast._feast_compiled_plain(A, X0, **kw)
     steps_fb = tfeast._feast_compiled_steps(A, X0, **kw)
     monkeypatch.undo()
-    full = tfeast._feast_compiled_plain(A, X0, **kw)
-    assert _same(steps_fb, plain_fb) and _same(steps_fb, full)
+    tfeast.clear_graph_cache()     # the route is no part of the program's key
+    full = tfeast._feast_compiled_steps(A, X0, **kw)
+    assert not next(iter(tfeast._PROGRAMS.values())).mixed_eig
+    assert _same(steps_fb, full)
+    _matches_jax(steps_fb, _jax_run(with_b=with_b))
     tfeast.clear_graph_cache()
 
 
@@ -286,7 +315,7 @@ def test_step_driver_matches_jax_on_a_pencil():
 
 def test_cached_program_reads_new_values():
     """A second matrix of the same shape reuses the cached program and gets
-    its own answer, the plain loop's bit for bit."""
+    its own answer: a fresh program's bit for bit, and JAX's."""
     A, X0, B = _problem()
     kw = dict(c=3.5, r=2.2, nodes=8, iters=20, tol=1e-10, mixed_prec=True, B=B,
               device="cpu")
@@ -297,11 +326,13 @@ def test_cached_program_reads_new_values():
     second = tfeast._feast_compiled_steps(A2, X0, **kw)
     assert next(iter(tfeast._PROGRAMS.values())) is prog and len(tfeast._PROGRAMS) == 1
     assert not torch.equal(first.lam, second.lam)
-    assert _same(second, tfeast._feast_compiled_plain(A2, X0, **kw))
+    _matches_jax(second, _jax_run(shift=0.25))
     # the result does not alias the program's buffers
     lam = second.lam.clone()
     tfeast._feast_compiled_steps(A, X0, **kw)
     assert torch.equal(second.lam, lam)
+    tfeast.clear_graph_cache()
+    assert _same(second, tfeast._feast_compiled_steps(A2, X0, **kw))
     tfeast.clear_graph_cache()
 
 
@@ -339,7 +370,8 @@ def test_cache_keeps_the_newest_signature_and_its_switches():
                 keys.add(tfeast._program_key(torch.zeros(4, 4), None, torch.zeros(4, 2),
                                              torch.zeros(8), SimpleNamespace(
                                                  kind="circle", params=(0.0, 0.0, 1.0)),
-                                             10, 1e-10, "cholqr2", True, True, True))
+                                             10, 1e-10, "cholqr2", True, True, "lu",
+                                             True))
             finally:
                 setter(names[0])
     assert len(keys) == 5
@@ -367,11 +399,11 @@ def test_cache_keeps_the_newest_signature_and_its_switches():
         "schur_torch", "sliced", "sliced_cpu", "sliced_slice_mesh", "sliced_m0_129",
         "sliced_eig_full", "sliced_schur_torch"])
 def test_scope_rule(opts, graphs):
-    """Which options the graphs take on the card, and which the plain loop,
-    for `feast_compiled` and for `feast_sliced_parallel` (the same rule at
-    pencil "lu").  A mesh is no reason for the plain loop: the rule takes
-    none (the node sum's all-reduce is captured; a "slice" mesh runs no
-    collective inside the loop)."""
+    """Which options the graphs take on the card, and which run the steps
+    eagerly, for `feast_compiled` and for `feast_sliced_parallel` (the same
+    rule at pencil "lu").  A mesh is no reason to run them eagerly: the
+    rule takes none (the node sum's all-reduce is captured; a "slice" mesh
+    runs no collective inside the loop)."""
     sliced = importlib.import_module("feast_tpu_torch.parallel.slicing")
     assert sliced._graph_scope is tfeast._graph_scope
     assert list(inspect.signature(tfeast._graph_scope).parameters) == ["device", "m0",
@@ -388,16 +420,43 @@ def test_scope_rule(opts, graphs):
     assert (why is None) == graphs
 
 
-def test_cpu_and_outside_options_take_the_plain_loop():
+def test_cpu_and_outside_options_run_the_eager_program():
+    """On the CPU the public driver runs the sweep program eagerly, with the
+    options outside the graphs' scope too: pencil "qz" (held to JAX's
+    `feast_compiled(pencil="qz")`), "hermitian" (to scipy's eigh of the
+    Hermitian pencil) and eig mode "full" (to JAX's default pencil)."""
+    import scipy.linalg as sla
+
     A, X0, B = _problem()
-    kw = dict(c=3.5, r=2.2, nodes=8, iters=20, tol=1e-10, mixed_prec=True, device="cpu")
+    H = (A + A.conj().T) / 2
+    kw = dict(c=3.5, r=2.2, nodes=8, iters=20, tol=1e-10, mixed_prec=True, B=B,
+              device="cpu")
+    cases = (("lu", A, {}, "mixed"), ("qz", A, dict(pencil="qz"), "mixed"),
+             ("hermitian", H, dict(hermitian=True), "mixed"), ("lu", A, {}, "full"))
+    keys = set()
+    for pencil, M, opts, mode in cases:
+        tfeast.clear_graph_cache()
+        teig.set_eig_mode(mode)
+        try:
+            res = ft.feast_compiled(M, X0, **kw, **opts)
+        finally:
+            teig.set_eig_mode("mixed")
+        ((key, prog),) = tfeast._PROGRAMS.items()
+        keys.add(key)
+        assert isinstance(prog, tfeast._SweepProgram) and not prog.graphs
+        assert prog.pencil == pencil and not prog.mixed_eig
+        assert prog.sweeps[0] > 0 and res.converged
+        if pencil == "hermitian":
+            w = sla.eigh(H, B, eigvals_only=True)
+            lam, X, r = res.filtered()
+            np.testing.assert_allclose(np.sort(lam.real), w[np.abs(w - 3.5) <= 2.2],
+                                       rtol=0, atol=1e-10)
+            assert np.abs(lam.imag).max() == 0 and r.max() < 1e-10
+            assert np.linalg.norm(H @ X - (B @ X) * lam[None, :], axis=0).max() < 1e-10
+        else:
+            _matches_jax(res, _jax_run(pencil=pencil))
+    assert len(keys) == len(cases)
     tfeast.clear_graph_cache()
-    res = ft.feast_compiled(A, X0, B=B, **kw)
-    assert tfeast._PROGRAMS == {}
-    assert _same(res, tfeast._feast_compiled_plain(A, X0, B=B, **kw))
-    for bad in (dict(pencil="qz"), dict(hermitian=True)):
-        with pytest.raises(ValueError, match="pencil 'lu'"):
-            tfeast._feast_compiled_steps(A, X0, B=B, **kw, **bad)
 
 
 def test_graph_launch_tally():

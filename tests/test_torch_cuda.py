@@ -553,9 +553,10 @@ def _graph_problem(n=256, m0=16, seed=0):
 
 
 @pytest.mark.parametrize("with_b", [False, True], ids=["std", "pencil"])
-def test_feast_compiled_graphs_match_plain_loop(dev, with_b):
-    """feast_compiled's sweeps run as CUDA graph replays and give the plain
-    loop's result bit for bit, with as many K1 and K2 launches."""
+def test_feast_compiled_graphs_match_eager_steps(dev, with_b):
+    """feast_compiled's sweeps run as CUDA graph replays (capture, then
+    replays only) and give the same steps' result run eagerly bit for bit,
+    with as many K1 and K2 launches."""
     import importlib
 
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
@@ -565,7 +566,7 @@ def test_feast_compiled_graphs_match_plain_loop(dev, with_b):
     fmod.clear_graph_cache()
     counts = []
     results = []
-    for fn in (ft.feast_compiled, fmod._feast_compiled_plain, ft.feast_compiled):
+    for fn in (fmod._feast_compiled_steps, ft.feast_compiled, ft.feast_compiled):
         k1, k2 = panel_lu.launches, schur_kernel.launches
         results.append(fn(A, X0, **kw))
         torch.cuda.synchronize()
@@ -573,7 +574,7 @@ def test_feast_compiled_graphs_match_plain_loop(dev, with_b):
     prog = next(iter(fmod._PROGRAMS.values()))
     assert prog.graphs and prog.replays > 0
     assert counts[0] == counts[1] == counts[2] and counts[0][1] > 0
-    g, p, warm = results
+    p, g, warm = results
     for res in (g, warm):
         assert res.converged and res.n_iter == p.n_iter
         for a, b in zip(res[:4], p[:4]):
@@ -583,7 +584,7 @@ def test_feast_compiled_graphs_match_plain_loop(dev, with_b):
 
 def test_feast_compiled_graphs_read_new_values_at_one_shape(dev):
     """A cached graph reads each solve's inputs: a second matrix of the same
-    shape gives its own eigenvalues, equal to the plain loop's."""
+    shape gives its own eigenvalues, equal to the eager steps'."""
     import importlib
 
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
@@ -595,9 +596,9 @@ def test_feast_compiled_graphs_read_new_values_at_one_shape(dev):
     prog = next(iter(fmod._PROGRAMS.values()))
     second = ft.feast_compiled(A2, X0, **kw)
     assert next(iter(fmod._PROGRAMS.values())) is prog
-    plain = fmod._feast_compiled_plain(A2, X0, **kw)
+    steps = fmod._feast_compiled_steps(A2, X0, **kw)
     assert not torch.equal(first.lam, second.lam)
-    for a, b in zip(second[:4], plain[:4]):
+    for a, b in zip(second[:4], steps[:4]):
         assert torch.equal(a, b)
     fmod.clear_graph_cache()
 
@@ -605,7 +606,7 @@ def test_feast_compiled_graphs_read_new_values_at_one_shape(dev):
 def test_feast_compiled_graphs_with_the_matrix_product_kernel(dev):
     """Under cx.set_gemm_backend("cuda") the node solves' products are K3
     inside the update graph: a new signature, and as many K3 launches per
-    solve as the plain loop's."""
+    solve as the eager steps', with their result."""
     import importlib
 
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
@@ -616,7 +617,7 @@ def test_feast_compiled_graphs_with_the_matrix_product_kernel(dev):
     cx.set_gemm_backend("cuda")
     try:
         counts, results = [], []
-        for fn in (ft.feast_compiled, ft.feast_compiled, fmod._feast_compiled_plain):
+        for fn in (fmod._feast_compiled_steps, ft.feast_compiled, ft.feast_compiled):
             before = cmatmul_kernel.launches
             results.append(fn(A, X0, **kw))
             torch.cuda.synchronize()
@@ -626,7 +627,7 @@ def test_feast_compiled_graphs_with_the_matrix_product_kernel(dev):
         cx.set_gemm_backend("torch")
         fmod.clear_graph_cache()
     assert counts[0] == counts[1] == counts[2] > 0
-    for a, b in zip(results[1][:4], results[2][:4]):
+    for a, b in zip(results[0][:4], results[2][:4]):
         assert torch.equal(a, b)
 
 
@@ -683,7 +684,7 @@ def test_spans_on_the_graphs_route(dev):
 
 
 def test_eigh_cannot_be_captured(dev):
-    """Why pencil "hermitian" runs feast_compiled's plain loop: the card's
+    """Why pencil "hermitian" runs feast_compiled's steps eagerly: the card's
     torch.linalg.eigh reads its info on the host, which invalidates a
     capture.  A failed capture leaves the process's cuSOLVER unusable, so
     the capture runs in a child process."""
@@ -719,8 +720,8 @@ def _same_result(a, b):
 def test_sliced_graphs_equal_the_sliced_steps(dev):
     """feast_sliced_parallel's stacked slices as CUDA graph replays equal the
     same batched steps run eagerly on the card, bit for bit per slice, and
-    the slices run one after the other to 1e-12 relative; each batched
-    sweep is one K2 launch for all slices."""
+    eigvalsh's eigenvalues; each batched sweep is one K2 launch for all
+    slices."""
     import importlib
 
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
@@ -740,17 +741,12 @@ def test_sliced_graphs_equal_the_sliced_steps(dev):
     prog = next(iter(fmod._PROGRAMS.values()))
     assert isinstance(prog, sl._SlicedProgram) and prog.graphs and prog.replays > 0
     steps = sl._feast_sliced_parallel_steps(H, (0.5, 24.5), 4, **kw)
-    plain = sl._feast_sliced_parallel_plain(H, (0.5, 24.5), 4, **kw)
     fmod.clear_graph_cache()
     # one launch a batched sweep (the stochastic count and the complex128
     # fallback of a failed guard launch none)
     assert k2[0] == k2[1] == prog.sweeps == max(r.n_iter for r in graphs[1].per_slice)
     for g in graphs:
         assert all(_same_result(a, b) for a, b in zip(g.per_slice, steps.per_slice))
-    for a, b in zip(graphs[1].per_slice, plain.per_slice):
-        assert a.n_iter == b.n_iter and a.converged == b.converged
-        la, lb = np.sort(a.filtered()[0].real), np.sort(b.filtered()[0].real)
-        np.testing.assert_allclose(la, lb, rtol=1e-12, atol=0)
     w = np.linalg.eigvalsh(H)
     np.testing.assert_allclose(np.sort(graphs[1].lam.real), w[(w > 0.5) & (w < 24.5)],
                                atol=1e-10)
@@ -758,9 +754,9 @@ def test_sliced_graphs_equal_the_sliced_steps(dev):
 
 def test_feast_compiled_mesh_graphs_over_nccl(dev, tmp_path):
     """feast_compiled(mesh=node_mesh()) at world size 1 over NCCL: its
-    sweeps are graph replays with the node all-reduce captured in the
-    update graph, bit for bit the plain loop under the same mesh, with as
-    many K1 and K2 launches."""
+    sweeps are graph replays with the node all-reduce a graph of its own,
+    bit for bit the eager steps under the same mesh, with as many K1 and K2
+    launches."""
     import importlib
 
     import torch.distributed as dist
@@ -774,7 +770,7 @@ def test_feast_compiled_mesh_graphs_over_nccl(dev, tmp_path):
         mesh = ft.parallel.node_mesh(device_type="cuda")
         fmod.clear_graph_cache()
         results, counts = [], []
-        for fn in (ft.feast_compiled, fmod._feast_compiled_plain, ft.feast_compiled):
+        for fn in (fmod._feast_compiled_steps, ft.feast_compiled, ft.feast_compiled):
             k1, k2 = panel_lu.launches, schur_kernel.launches
             results.append(fn(A, X0, mesh=mesh, **kw))
             torch.cuda.synchronize()
@@ -784,7 +780,7 @@ def test_feast_compiled_mesh_graphs_over_nccl(dev, tmp_path):
         fmod.clear_graph_cache()
     finally:
         dist.destroy_process_group()
-    g, p, warm = results
+    p, g, warm = results
     assert counts[0] == counts[1] == counts[2] and counts[0][1] > 0
     assert p.converged and _same_result(g, p) and _same_result(warm, p)
 
@@ -793,8 +789,8 @@ def test_feast_compiled_node_sum_graphs_over_nccl_ranks(dev, tmp_path):
     """feast_compiled(mesh=) on one card a rank over NCCL (2 or 4 ranks):
     the update and the node sum are graphs of their own, captured by the
     first solve and replayed by the next, each sum in a `feast.node_sum`
-    span after its update; every route gives the plain loop's bits on
-    every rank."""
+    span after its update; the graphs and their replays give the eager
+    steps' spans and bits on every rank."""
     from _torch_ranks import Ranks
 
     world = 4 if torch.cuda.device_count() >= 4 else 2
@@ -808,11 +804,11 @@ def test_feast_compiled_node_sum_graphs_over_nccl_ranks(dev, tmp_path):
     finally:
         ranks.close()
     for o in outs:
-        assert o["replay_count"] > 0 and o["plain"]["converged"]
+        assert o["replay_count"] > 0 and o["steps"]["converged"]
         for route in ("steps", "graphs", "replays"):
-            assert o[route]["spans"] == o["plain"]["spans"]
+            assert o[route]["spans"] == o["steps"]["spans"]
             for k in ("lam", "X", "res", "inside", "n_iter", "converged"):
-                np.testing.assert_array_equal(o[route][k], o["plain"][k])
+                np.testing.assert_array_equal(o[route][k], o["steps"][k])
                 np.testing.assert_array_equal(o[route][k], outs[0][route][k])
         spans = o["replays"]["spans"]
         sums = [a for name, a in spans if name == "feast.node_sum"]

@@ -1,10 +1,11 @@
 """The node sum of `feast_compiled(mesh=)` as a step and a span of its own.
 
-On 4 gloo ranks (`_torch_ranks.Ranks`) the plain loop and the sweep program
-run eagerly record one `feast.node_sum` span after each `feast.update`,
-with the tier, the payload's bytes and the ranks, and give the same bits
-as each other on every rank.  Without a mesh there is no such span.  The
-card's graphs of the split are held to the same in `test_torch_cuda.py`.
+On 4 gloo ranks (`_torch_ranks.Ranks`) the sweep program run eagerly
+records one `feast.node_sum` span after each `feast.update`, with the
+tier, the payload's bytes and the ranks, gives the same bits on every
+rank, and matches the JAX package's `feast_compiled` on a 4-device node
+mesh.  Without a mesh there is no such span.  The card's graphs of the
+split are held to the eager steps in `test_torch_cuda.py`.
 """
 
 import importlib
@@ -12,7 +13,10 @@ import importlib
 import numpy as np
 import pytest
 
+import feast_tpu as jt
+import feast_tpu_torch as ft
 from _torch_ranks import Ranks
+from feast_tpu.parallel import node_mesh as jax_node_mesh
 from feast_tpu_torch.utils import tracing
 
 fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
@@ -59,32 +63,41 @@ def test_node_sum_spans_and_results_on_four_ranks(ranks4, problem, mixed):
     outs = ranks4.run("node_sum_spans", A=A, X0=X0, mixed_prec=mixed, **KW)
     sizes = {"c64": 8, "c128": 16}
     for o in outs:
-        for route in ("plain", "steps"):
-            check_spans(o[route]["spans"], sizes, 4)
-        assert o["steps"]["spans"] == o["plain"]["spans"]
+        check_spans(o["steps"]["spans"], sizes, 4)
+        assert o["steps"]["spans"] == outs[0]["steps"]["spans"]
         for k in KEYS:
-            np.testing.assert_array_equal(o["steps"][k], o["plain"][k])
             np.testing.assert_array_equal(o["steps"][k], outs[0]["steps"][k])
-    got = outs[0]["plain"]
+    got = outs[0]["steps"]
     assert got["converged"]
     lam = np.sort(got["lam"][got["inside"]].real)
     np.testing.assert_allclose(lam, np.arange(3.0, 9.0), atol=1e-9)
+    # the JAX package on the same inputs over a 4-device node mesh
+    ref = jt.feast_compiled(A, X0, mesh=jax_node_mesh(4), mixed_prec=mixed, **KW)
+    assert got["n_iter"] == int(ref.n_iter) and got["converged"] == bool(ref.converged)
+    lam_j, _, res_j = ref.filtered()
+    order = np.argsort(got["lam"][got["inside"]].real)
+    np.testing.assert_allclose(got["lam"][got["inside"]][order],
+                               lam_j[np.argsort(lam_j.real)], rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got["res"][got["inside"]][order],
+                               res_j[np.argsort(lam_j.real)], rtol=0, atol=1e-10)
     # the complex64 tier runs only with mixed precision
-    tiers = {a["tier"] for name, a in outs[0]["plain"]["spans"] if name == "feast.node_sum"}
+    tiers = {a["tier"] for name, a in got["spans"] if name == "feast.node_sum"}
     assert tiers == ({"c64", "c128"} if mixed else {"c128"})
 
 
-@pytest.mark.parametrize("route", ["_feast_compiled_plain", "_feast_compiled_steps"])
-def test_no_node_sum_without_a_mesh(problem, route):
+@pytest.mark.parametrize("mixed", [True, False], ids=["mixed", "full"])
+def test_no_node_sum_without_a_mesh(problem, mixed):
     A, X0 = problem
     with tracing.recording():
-        res = getattr(fmod, route)(A, X0, mixed_prec=True, device="cpu", **KW)
+        res = ft.feast_compiled(A, X0, mixed_prec=mixed, device="cpu", **KW)
     recs = tracing.spans()
     fmod.clear_graph_cache()
     assert res.converged
     names = [r["name"] for r in recs]
     assert "feast.update" in names and "feast.node_sum" not in names
     assert [r["attrs"]["nodes"] for r in recs if r["name"] == "feast.factor"] == [NODES]
+    tiers = {r["attrs"]["tier"] for r in recs if r["name"] == "feast.update"}
+    assert tiers == ({"c64", "c128"} if mixed else {"c128"})
 
 
 def test_in_place_node_sum(ranks4):

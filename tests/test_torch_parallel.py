@@ -98,21 +98,20 @@ def test_feast_compiled_four_ranks_match_jax_mesh(ranks4, diag25):
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["full", "two_tier"])
-def test_feast_compiled_steps_under_a_mesh_equal_the_plain_loop(ranks4, diag25, mixed):
+def test_feast_compiled_steps_under_a_mesh_match_jax(ranks4, diag25, mixed):
     """feast_compiled(mesh=)'s sweep program run eagerly, the node
-    all-reduce inside its update steps (the graphs' route on the card),
-    equals the plain loop under the same mesh bit for bit on every rank,
-    with the same n_iter; in full precision also the JAX mesh result."""
+    all-reduce a step after each update (the graphs' route on the card),
+    gives the same result on every rank, and the JAX mesh result on the
+    same inputs: the same n_iter, eigenvalues to 1e-12 (1e-10 with the
+    complex64 tier)."""
     A, X0 = diag25
     kw = dict(c=1.5 + 0j, r=2.0, nodes=8)
-    outs = ranks4.run("compiled_routes", A=A, X0=X0, mixed_prec=mixed, **kw)
-    for o in outs:
-        for k in ("lam", "X", "res", "inside", "n_iter", "converged"):
-            np.testing.assert_array_equal(o["steps"][k], o["plain"][k])
-    _same_on_every_rank([o["steps"] for o in outs])
-    assert outs[0]["steps"]["converged"]
-    if not mixed:
-        _against_jax(outs[0]["steps"], jt.feast_compiled(A, X0, mesh=jax_node_mesh(4), **kw))
+    outs = ranks4.run("compiled_steps", A=A, X0=X0, mixed_prec=mixed, **kw)
+    _same_on_every_rank(outs, keys=("lam", "X", "res", "inside"))
+    assert all(o["converged"] == outs[0]["converged"] for o in outs)
+    assert outs[0]["converged"]
+    _against_jax(outs[0], jt.feast_compiled(A, X0, mesh=jax_node_mesh(4), mixed_prec=mixed,
+                                            **kw), tol=1e-10 if mixed else 1e-12)
 
 
 def test_dual_gen_feast_four_ranks_match_single(ranks4, diag25):

@@ -1,16 +1,17 @@
 """`feast_sliced_parallel`'s stacked slices as one batched sweep program, on
 the CPU: the batched building blocks give each matrix what it gets alone,
 the batched steps read nothing on the host, the program run eagerly
-(`_feast_sliced_parallel_steps`) agrees with the slices run one after the
-other (`_feast_sliced_parallel_plain`) and with the JAX package's vmapped
-while_loop, and a cached program solves a new interval of its shape.
+(`_feast_sliced_parallel_steps`, which the public driver is on the CPU)
+agrees with the JAX package's vmapped while_loop in full precision and,
+with mixed_prec, which the JAX package's slicing drivers lack, with
+scipy's eigh of the same pencil, and a cached program solves a new
+interval of its shape.
 
 On the card the same steps are captured as CUDA graphs
 (`tests/test_torch_cuda.py`).  Tolerances: a batch of matrices goes through
 batched matrix products whose sums may round apart from one matrix's, so
-batched against alone is held to 1e-13 relative; the two routes of a
-driver to 1e-12 (the residual bound of the solves is 1e-12 too); against
-the JAX package to 1e-10, as the other parity tests.
+batched against alone is held to 1e-13 relative; against the JAX package
+and scipy to 1e-10, as the other parity tests.
 """
 
 import importlib
@@ -18,6 +19,7 @@ import time
 
 import numpy as np
 import pytest
+import scipy.linalg as sla
 import torch
 
 import feast_tpu as jt
@@ -134,43 +136,57 @@ def test_batched_steps_read_nothing_on_the_host(no_host_reads, forced_mixed, wit
     assert torch.isfinite(torch.view_as_real(prog.buf["Q"])).all()
 
 
-def _slices_equal(a, b, tol=1e-12):
+def _slices_equal(a, b, tol=1e-10, rtol=0.0):
     """Per slice: the same n_iter and convergence, the inside eigenvalues
-    and their residuals within tol."""
+    within tol and their residuals within tol (plus rtol relative)."""
+    assert len(a.per_slice) == len(b.per_slice)
     for x, y in zip(a.per_slice, b.per_slice):
-        assert x.n_iter == y.n_iter and x.converged == y.converged
+        assert x.n_iter == int(y.n_iter) and x.converged == bool(y.converged)
         lx, _, rx = x.filtered()
         ly, _, ry = y.filtered()
         assert len(lx) == len(ly)
         ox, oy = np.argsort(lx.real), np.argsort(ly.real)
-        np.testing.assert_allclose(lx[ox], ly[oy], rtol=tol, atol=0)
-        np.testing.assert_allclose(rx[ox], ry[oy], rtol=0, atol=tol)
+        np.testing.assert_allclose(lx[ox], ly[oy], rtol=0, atol=tol)
+        np.testing.assert_allclose(rx[ox], ry[oy], rtol=rtol, atol=tol)
+
+
+def _held_to_eigh(out, A, B, interval, tol=1e-10):
+    """Where the JAX package has no counterpart: every slice converged, the
+    merged eigenvalues scipy's of the pencil inside the interval to 1e-10,
+    every residual below tol."""
+    w = sla.eigh(A, B, eigvals_only=True)
+    assert all(r.converged for r in out.per_slice)
+    np.testing.assert_allclose(np.sort(out.lam.real), w[(w > interval[0]) & (w < interval[1])],
+                               rtol=0, atol=1e-10)
+    assert out.res.max() < tol
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["full", "mixed"])
 @pytest.mark.parametrize("with_b", [False, True], ids=["std", "pencil"])
-def test_steps_equal_plain_loop(mixed, with_b):
+def test_steps_match_jax(mixed, with_b):
+    """Full precision against the JAX package's `feast_sliced_parallel` on
+    the same inputs; mixed_prec, which it lacks, against scipy's eigh."""
     A, B = _hermitian()
-    kw = dict(nodes=8, iters=20, tol=1e-10, mixed_prec=mixed, device="cpu")
+    kw = dict(nodes=8, iters=20, tol=1e-10)
     Bx = B if with_b else None
-    plain = tsl._feast_sliced_parallel_plain(A, (0.5, 12.5), 3, Bx, **kw)
-    steps = tsl._feast_sliced_parallel_steps(A, (0.5, 12.5), 3, Bx, **kw)
+    steps = tsl._feast_sliced_parallel_steps(A, (0.5, 12.5), 3, Bx, mixed_prec=mixed,
+                                             device="cpu", **kw)
     prog = next(iter(tfeast._PROGRAMS.values()))
     assert isinstance(prog, tsl._SlicedProgram) and not prog.graphs
     assert prog.sweeps == max(r.n_iter for r in steps.per_slice)
-    assert all(r.converged for r in plain.per_slice)
-    _slices_equal(steps, plain)
-    np.testing.assert_allclose(np.sort(steps.lam.real), np.sort(plain.lam.real),
-                               rtol=1e-12, atol=0)
     tfeast.clear_graph_cache()
+    _held_to_eigh(steps, A, Bx, (0.5, 12.5))
+    if not mixed:
+        _slices_equal(steps, jt.parallel.feast_sliced_parallel(A, (0.5, 12.5), 3, Bx, **kw))
 
 
 @pytest.mark.parametrize("with_b", [False, True], ids=["std", "pencil"])
-def test_steps_fall_back_per_slice_as_the_plain_loop(forced_mixed, monkeypatch, with_b):
+def test_steps_fall_back_per_slice(forced_mixed, monkeypatch, with_b):
     """With the card's mixed eig route and every guard forced to fail, each
     active slice reruns its Rayleigh-Ritz with the full eig in every sweep
-    (JAX's lax.cond), as the plain loop's `eig` falls back: the same sweeps
-    and eigenvalues to 1e-12, one fallback per slice and sweep."""
+    (JAX's lax.cond), one fallback per slice and sweep: the sweeps and
+    results of the program without the mixed route, bit for bit, and
+    scipy's eigenvalues."""
     def failing(flagged):
         return lambda *a: (lambda lam, V, ok: (lam, V, ok & False))(*flagged(*a))
 
@@ -179,27 +195,31 @@ def test_steps_fall_back_per_slice_as_the_plain_loop(forced_mixed, monkeypatch, 
     A, B = _hermitian()
     kw = dict(nodes=8, iters=20, tol=1e-10, mixed_prec=True, device="cpu")
     Bx = B if with_b else None
-    plain = tsl._feast_sliced_parallel_plain(A, (0.5, 12.5), 3, Bx, **kw)
     steps = tsl._feast_sliced_parallel_steps(A, (0.5, 12.5), 3, Bx, **kw)
     prog = next(iter(tfeast._PROGRAMS.values()))
     assert prog.mixed_eig and prog.fallbacks == sum(r.n_iter for r in steps.per_slice)
-    assert all(r.converged for r in steps.per_slice)
-    _slices_equal(steps, plain)
+    monkeypatch.undo()
+    tfeast.clear_graph_cache()     # the route is no part of the program's key
+    full = tsl._feast_sliced_parallel_steps(A, (0.5, 12.5), 3, Bx, **kw)
+    assert not next(iter(tfeast._PROGRAMS.values())).mixed_eig
     tfeast.clear_graph_cache()
+    _slices_equal(steps, full, tol=0)
+    _held_to_eigh(steps, A, Bx, (0.5, 12.5))
 
 
-def test_steps_equal_plain_loop_where_a_slice_runs_to_its_cap():
+def test_steps_match_jax_where_a_slice_runs_to_its_cap():
     """Two slices of the tie problem at m0 = 13: (0.5, 10.5) converges,
     (10.5, 20.5) parks its spurious value and runs to the cap (31 sweeps);
-    the converged slice keeps its state while the other runs on."""
+    the converged slice keeps its state while the other runs on.  Per
+    slice the JAX package's sweeps and pairs, the spurious one too."""
     H = _tie_problem(1)
-    kw = dict(nodes=8, iters=30, tol=1e-10, m0=13, seed=1, device="cpu")
-    plain = tsl._feast_sliced_parallel_plain(H, (0.5, 20.5), 2, **kw)
-    steps = tsl._feast_sliced_parallel_steps(H, (0.5, 20.5), 2, **kw)
+    kw = dict(nodes=8, iters=30, tol=1e-10, m0=13, seed=1)
+    steps = tsl._feast_sliced_parallel_steps(H, (0.5, 20.5), 2, device="cpu", **kw)
     tfeast.clear_graph_cache()
     assert [r.converged for r in steps.per_slice] == [True, False]
     assert steps.per_slice[1].n_iter == 31 and steps.per_slice[0].n_iter < 31
-    _slices_equal(steps, plain)
+    _slices_equal(steps, jt.parallel.feast_sliced_parallel(H, (0.5, 20.5), 2, **kw),
+                  rtol=1e-8)
     w = np.linalg.eigvalsh(H)
     np.testing.assert_allclose(np.sort(steps.lam.real), w[(w > 0.5) & (w < 20.5)],
                                atol=1e-10)
@@ -225,9 +245,9 @@ def test_steps_match_jax_sliced_parallel():
 
 def test_cached_program_solves_a_new_interval():
     """A second interval of the same shape (slices, m0, nodes) reuses the
-    cached program and gets its own eigenvalues, the plain loop's: the
-    circles, nodes and weights are buffer contents, nothing of them is
-    baked into the steps."""
+    cached program and gets its own eigenvalues, a fresh program's bit for
+    bit and scipy's: the circles, nodes and weights are buffer contents,
+    nothing of them is baked into the steps."""
     A, _ = _hermitian()
     kw = dict(nodes=8, iters=20, tol=1e-10, m0=10, mixed_prec=True, device="cpu")
     tfeast.clear_graph_cache()
@@ -236,23 +256,27 @@ def test_cached_program_solves_a_new_interval():
     second = tsl._feast_sliced_parallel_steps(A, (20.5, 32.5), 3, **kw)
     assert len(tfeast._PROGRAMS) == 1 and next(iter(tfeast._PROGRAMS.values())) is prog
     assert np.all(second.lam.real > 20.5) and np.all(first.lam.real < 12.5)
-    _slices_equal(second, tsl._feast_sliced_parallel_plain(A, (20.5, 32.5), 3, **kw))
+    tfeast.clear_graph_cache()
+    _slices_equal(second, tsl._feast_sliced_parallel_steps(A, (20.5, 32.5), 3, **kw), tol=0)
+    _held_to_eigh(second, A, None, (20.5, 32.5))
     tfeast.clear_graph_cache()
 
 
 def test_one_program_cache_for_both_drivers():
     """The card holds one program: a sliced call frees `feast_compiled`'s,
     and the reverse; `clear_graph_cache` frees either.  On the CPU the
-    public driver runs the plain loop and caches nothing."""
+    public driver caches its program without graphs and gives the steps'
+    bits."""
     A, _ = _hermitian()
     rng = np.random.default_rng(0)
     X0 = rng.standard_normal((60, 8)) + 1j * rng.standard_normal((60, 8))
     kw = dict(nodes=8, iters=20, tol=1e-10, mixed_prec=True, device="cpu")
     tfeast.clear_graph_cache()
     res = ft.parallel.feast_sliced_parallel(A, (0.5, 12.5), 3, **kw)
-    assert tfeast._PROGRAMS == {}
-    plain = tsl._feast_sliced_parallel_plain(A, (0.5, 12.5), 3, **kw)
-    assert np.array_equal(res.lam, plain.lam)
+    ((key, prog),) = tfeast._PROGRAMS.items()
+    assert isinstance(prog, tsl._SlicedProgram) and not prog.graphs
+    steps = tsl._feast_sliced_parallel_steps(A, (0.5, 12.5), 3, **kw)
+    assert list(tfeast._PROGRAMS) == [key] and np.array_equal(res.lam, steps.lam)
     tfeast._feast_compiled_steps(A, X0, c=3.5, r=2.2, **kw)
     assert isinstance(next(iter(tfeast._PROGRAMS.values())), tfeast._SweepProgram)
     tsl._feast_sliced_parallel_steps(A, (0.5, 12.5), 3, **kw)
@@ -266,8 +290,8 @@ def test_one_program_cache_for_both_drivers():
 
 def test_factor_goes_into_the_program_store():
     """The program factors the S x nodes matrices in its own store (no
-    second copy): the LU the steps read is a view of it, and equals the
-    plain loop's `_factor_scan` bit for bit."""
+    second copy): the LU the steps read is a view of it, and equals
+    `_factor_scan`'s bit for bit."""
     A, B = _hermitian()
     prog = _program(A, B, mixed=True)
     store = prog.buf["store"]
@@ -296,3 +320,23 @@ def test_factor_into_a_reused_padded_store(monkeypatch):
     ref = tfeast._factor_scan(At, Bt, z, True)
     assert torch.equal(LU, ref[0]) and torch.equal(perm, ref[1])
     assert all(torch.equal(a, b) for a, b in zip(dinv, ref[2]))
+
+
+def test_program_factor_records_the_factor_spans():
+    """The sliced program's factor records `_factor_scan`'s inner spans:
+    forming, LU and the diagonal-block inverses of its S x nodes
+    matrices, one each."""
+    from feast_tpu_torch.utils import tracing
+
+    A, B = _hermitian()
+    tracing.clear()
+    try:
+        with tracing.recording():
+            _program(A, B)
+        recs = tracing.spans()
+    finally:
+        tracing.clear()
+    assert sorted(r["name"] for r in recs) == ["feast.factor.diag_inv", "feast.factor.form",
+                                               "feast.factor.lu"]
+    (inv,) = [r for r in recs if r["name"] == "feast.factor.diag_inv"]
+    assert inv["attrs"]["blocks"] == 3 * 8

@@ -1,7 +1,7 @@
 """The solvers' spans (`feast_tpu_torch/utils/tracing.py`) on the CPU.
 
-The span tree of `feast_compiled` (its plain loop and its sweep program's
-steps) and of `nlfeast`, the per-tier sweep counts against the result's
+The span tree of `feast_compiled` (its sweep program's steps, run eagerly
+here, with and without the complex64 tier) and of `nlfeast`, the per-tier sweep counts against the result's
 n_iter, the Jacobi sweeps against a direct count, that spans off record
 nothing and that no mode of recording changes a result, and that the
 profiler alone turns spans on, its "span.<name>" ranges on the records'
@@ -27,7 +27,6 @@ nlmod = importlib.import_module("feast_tpu_torch.solvers.nlfeast")
 DENSE_KW = dict(c=1.5, r=2.0, nodes=8, tol=1e-12, mixed_prec=True, device="cpu")
 GUN_KW = dict(nodes=16, c=53.0, r=5.0, tol=1e-10, mixed_prec=True, store=False,
               device="cpu")
-ROUTES = {"plain": fmod._feast_compiled_plain, "steps": fmod._feast_compiled_steps}
 
 
 @pytest.fixture(autouse=True)
@@ -71,20 +70,20 @@ def parent_name(by_id, r):
     return by_id[r["parent"]]["name"]
 
 
-@pytest.mark.parametrize("route", sorted(ROUTES))
-def test_feast_compiled_span_tree(route):
+@pytest.mark.parametrize("two_tier", [True, False], ids=["two_tier", "one_tier"])
+def test_feast_compiled_span_tree(two_tier):
     A, X0 = dense_problem()
     with tracing.recording():
-        res = ROUTES[route](A, X0, **DENSE_KW)
+        res = ft.feast_compiled(A, X0, two_tier=two_tier, **DENSE_KW)
     recs = tracing.spans()
     by_id = check_tree(recs, "feast.solve")
     names = collections.Counter(r["name"] for r in recs)
     tiers = collections.Counter(r["attrs"]["tier"] for r in recs if r["name"] == "feast.rr")
     assert res.converged
     assert res.n_iter == max(tiers["c64"] - 1, 0) + tiers["c128"]
-    assert tiers["c64"] >= 1 and tiers["c128"] >= 1
+    assert (tiers["c64"] >= 1) == two_tier and tiers["c128"] >= 1
     # the stopping sweep of each tier does no update
-    assert names["feast.update"] == tiers["c64"] - 1 + tiers["c128"] - 1
+    assert names["feast.update"] == max(tiers["c64"] - 1, 0) + tiers["c128"] - 1
     assert (names["feast.factor"] == names["feast.factor.form"] == names["feast.factor.lu"]
             == names["feast.factor.diag_inv"] == 1)
     assert names["feast.loop"] == 1 and names["feast.eig_fallback"] == 0
@@ -119,7 +118,7 @@ def test_each_call_is_its_own_solve():
     A, X0 = dense_problem()
     with tracing.recording():
         for _ in range(2):
-            fmod._feast_compiled_plain(A, X0, **DENSE_KW)
+            ft.feast_compiled(A, X0, **DENSE_KW)
     recs = tracing.spans()
     roots = [r for r in recs if r["name"] == "feast.solve"]
     assert len(roots) == 2 and roots[0]["id"] != roots[1]["id"]
@@ -183,7 +182,7 @@ def test_spans_off_record_nothing():
     with tracing.span("a") as s:
         s.set("k", 1)
     A, X0 = dense_problem()
-    fmod._feast_compiled_plain(A, X0, **DENSE_KW)
+    ft.feast_compiled(A, X0, **DENSE_KW)
     assert tracing.spans() == []
 
 
@@ -245,7 +244,7 @@ def test_results_equal_in_every_mode(solver, gun):
 def test_profiler_alone_turns_spans_on_and_shares_their_clock():
     A, X0 = dense_problem()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        fmod._feast_compiled_plain(A, X0, **DENSE_KW)
+        ft.feast_compiled(A, X0, **DENSE_KW)
     recs = tracing.spans()
     assert {r["name"] for r in recs} >= {"feast.solve", "feast.factor", "feast.rr"}
     ranges = collections.defaultdict(list)
@@ -269,7 +268,7 @@ def test_a_new_session_drops_the_last_ones_records(mode, tmp_path):
     A, X0 = dense_problem()
 
     def solve():
-        fmod._feast_compiled_plain(A, X0, **DENSE_KW)
+        ft.feast_compiled(A, X0, **DENSE_KW)
 
     for _ in range(2):
         if mode == "recording":
@@ -292,10 +291,10 @@ def test_one_session_keeps_every_solve():
     several solves of one block."""
     A, X0 = dense_problem()
     with profile(activities=[ProfilerActivity.CPU]):
-        fmod._feast_compiled_plain(A, X0, **DENSE_KW)
+        ft.feast_compiled(A, X0, **DENSE_KW)
         with tracing.recording():
-            fmod._feast_compiled_plain(A, X0, **DENSE_KW)
-        fmod._feast_compiled_plain(A, X0, **DENSE_KW)
+            ft.feast_compiled(A, X0, **DENSE_KW)
+        ft.feast_compiled(A, X0, **DENSE_KW)
     assert roots_of(tracing.spans()) == ["feast.solve"] * 3
 
 
