@@ -37,7 +37,11 @@ Phases, each printing one JSON line:
           plain version (three real fp32 matmuls on the planes, Karatsuba) and
           complex128 at (256, 256, 256), (300, 130, 384)
           and the dense path's shapes (3968 x 128 x 3968 and 128 x 128 x 48,
-          batch 16), with torch.matmul on complex64 as a yardstick; then
+          batch 16), with torch.matmul on complex64 as a yardstick; its
+          update form in place (C <- C - L21 U12 on a factor buffer's views)
+          at the first trailing update of the cells' factors (16 x 10240,
+          4 x 20480, 4 x 9984) against complex128 and cuBLAS's baddbmm_,
+          timed beside baddbmm_ and its bound (C read and written); then
           feast_compiled with cx.set_gemm_backend("cuda"): at n = 1024 against
           LAPACK eigenvalues, and on the main path's problem (n = 4096), whose
           factor gives the kernel the timed shapes, counting its launches
@@ -684,6 +688,60 @@ def cmatmul_bound_ms(Bsz, M, K, N):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def trail_bound_ms(Bsz, M, K, N):
+    """Least time of the update in place C <- C + alpha A B at fp32
+    accuracy: 16 M N bytes of C (read and written once) and 8 (M K + K N)
+    of the operands, against 3 x 6 M N K operations on the TF32 tensor
+    cores (3xTF32 Karatsuba)."""
+    return bound_ms(16 * Bsz * (M * N) + 8 * Bsz * (M * K + K * N),
+                    18 * Bsz * M * N * K, PEAK_TF32_FLOPS)
+
+
+def trail_update(torch, cmk, dev, gen, Bsz, n, e=128, reps=5):
+    """The update in place at a factor's first trailing update: C =
+    A3[:, e:, e:] of a (Bsz, n, n) buffer, L21 = A3[:, e:, :e], U12 =
+    A3[:, :e, e:].  Its error against complex128 on 128 rows of C of the
+    first and the last matrix, within twice that of cuBLAS's baddbmm_ on
+    the same inputs; every entry outside C unchanged; one launch of the
+    update form; then kernel and baddbmm_ timed."""
+    buf = torch.randn((Bsz, n, n), dtype=torch.complex64, device=dev, generator=gen)
+    M = n - e
+    C, L, U = buf[:, e:, e:], buf[:, e:, :e], buf[:, :e, e:]
+    rows = torch.cat([torch.arange(64), torch.arange(M - 64, M)]).to(dev)
+    pick = (0, Bsz - 1)
+
+    def sample(T):
+        return torch.stack([T[i].index_select(0, rows) for i in pick]).to(torch.complex128)
+
+    ref = sample(C) - sample(L) @ torch.stack([U[i] for i in pick]).to(torch.complex128)
+    lib = buf.clone()
+    lib[:, e:, e:].baddbmm_(lib[:, e:, :e], lib[:, :e, e:], alpha=-1)
+    err_lib = float((sample(lib[:, e:, e:]) - ref).abs().max())
+    del lib
+    keep = buf.clone()
+    acc0, prod0 = cmk.acc_launches, cmk.launches
+    cmk.addmm_(C, L, U, -1.0)
+    torch.cuda.synchronize()
+    require(cmk.acc_launches == acc0 + 1 and cmk.launches == prod0,
+            f"k3 update {Bsz}x{n}: launches {cmk.acc_launches - acc0}, {cmk.launches - prod0}")
+    require(torch.equal(buf[:, :e], keep[:, :e]) and torch.equal(buf[:, e:, :e], keep[:, e:, :e]),
+            f"k3 update {Bsz}x{n}: an entry outside C changed")
+    del keep
+    err = float((sample(C) - ref).abs().max())
+    # 3xTF32 is fp32-accurate: within twice the library's fp32 error
+    require(err <= 2 * err_lib, f"k3 update {Bsz}x{n}: complex128 err {err} > 2 x {err_lib}")
+    k_ms = cuda_ms(lambda: cmk.addmm_(C, L, U, -1.0), reps)
+    l_ms = cuda_ms(lambda: C.baddbmm_(L, U, alpha=-1), reps)
+    bms, bby = trail_bound_ms(Bsz, M, e, M)
+    require(k_ms >= bms, f"k3 update {Bsz}x{n}: {k_ms} ms is below the bound {bms} ms")
+    del buf, C, L, U
+    torch.cuda.empty_cache()
+    return {"max_abs_err_vs_complex128": err, "library_err_vs_complex128": err_lib,
+            "err_ratio": err / err_lib, "kernel_ms": k_ms, "library_ms": l_ms,
+            "bound_ms": bms, "bound_by": bby, "share_of_bound_pct": 100 * bms / k_ms,
+            "tensor_tflops_executed": 18 * Bsz * M * M * e / k_ms / 1e9}
+
+
 def phase_k3(torch, ft, dev):
     from feast_tpu_torch.kernels import _build
 
@@ -739,6 +797,21 @@ def phase_k3(torch, ft, dev):
                    "bound_ms": bms, "bound_by": bby, "library_ms": l_ms}
         del a, b, got, want
     torch.cuda.empty_cache()
+    # the update form at the first trailing update of the cells' factors:
+    # dense10240, a rank of dense20480.node4, a chunk of the gun (n = 9956
+    # padded to 9,984)
+    acc_row = None
+    for Bsz, n in ((16, 10240), (4, 20480), (4, 9984)):
+        info = trail_update(torch, cmk, dev, gen, Bsz, n)
+        out[f"update_{Bsz}x{n - 128}x128x{n - 128}"] = info
+        if n == 10240:
+            acc_row = {"name": "cmatmul_acc", "route": "cuda",
+                       "source": "feast_tpu_torch/csrc/cmatmul.cu",
+                       "replaces": "cuBLAS cgemm (baddbmm_), ops/panel_lu.py",
+                       "max_abs_err": info["max_abs_err_vs_complex128"],
+                       "ms": info["kernel_ms"], "plain_ms": None,
+                       "bound_ms": info["bound_ms"], "bound_by": info["bound_by"],
+                       "library_ms": info["library_ms"]}
 
     # the dense path through the kernel: every complex64 product of the
     # factor and of the solves goes to it
@@ -778,7 +851,7 @@ def phase_k3(torch, ft, dev):
     out["dense_n4096_backend_cuda"] = info
     emit(out)
     row["launches"] = info["launches"]
-    return row
+    return [row, acc_row]
 
 
 # ---------------------------------------------------------------------------
@@ -910,6 +983,7 @@ def phase_main(torch, ft, dev, refs, reps=3):
     panel_lu = importlib.import_module("feast_tpu_torch.ops.panel_lu")
     schur_kernel = importlib.import_module("feast_tpu_torch.ops.schur_kernel")
     diag_inv = importlib.import_module("feast_tpu_torch.ops.diag_inv")
+    cmk = importlib.import_module("feast_tpu_torch.ops.cmatmul_kernel")
     fmod = importlib.import_module("feast_tpu_torch.solvers.feast")
     A, X0, c, r = bench_problem()
     At = torch.as_tensor(A, device=dev)
@@ -921,10 +995,11 @@ def phase_main(torch, ft, dev, refs, reps=3):
         panel_lu.launches = 0
         schur_kernel.launches = 0
         diag_inv.launches = 0
+        cmk.acc_launches = 0
         out = fn()
         torch.cuda.synchronize()
         return out, {"panel_lu": panel_lu.launches, "schur": schur_kernel.launches,
-                     "diag_inv": diag_inv.launches}
+                     "diag_inv": diag_inv.launches, "cmatmul_acc": cmk.acc_launches}
 
     t0 = time.perf_counter()
     res, launches = counted(lambda: ft.feast_compiled(At, Xt, **kw))
@@ -2822,11 +2897,12 @@ def main(argv=None):
         walls[name] = time.perf_counter() - t1
         return out
 
-    rows = [row for row in (run("k1", phase_k1, torch, panel_lu, dev),
+    rows = [row for out in (run("k1", phase_k1, torch, panel_lu, dev),
                             run("k2", phase_k2, torch, schur_kernel, dev, base_schur),
                             run("k3", phase_k3, torch, ft, dev),
                             run("k4", phase_k4, torch, dev, base_dia),
-                            run("diag_inv", phase_diag_inv, torch, dev)) if row is not None]
+                            run("diag_inv", phase_diag_inv, torch, dev)) if out is not None
+            for row in (out if isinstance(out, list) else [out])]
     run("small", phase_small, torch, ft, dev)
     launches, inside_main, refs = {}, None, {}
     if "main" in phases:

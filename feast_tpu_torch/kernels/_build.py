@@ -130,20 +130,28 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def count_launch(module: str):
+def count_launch(module: str, counter: str = "launches"):
     """One launch of the kernel of wrapper module `module` (its __name__):
     into the tally of the graph being captured, else into the module's
-    `launches`."""
+    `counter` (`launches`, or another count the module keeps)."""
+    key = module if counter == "launches" else f"{module}:{counter}"
     if _tallies:
-        _tallies[-1][module] = _tallies[-1].get(module, 0) + 1
+        _tallies[-1][key] = _tallies[-1].get(key, 0) + 1
     else:
-        sys.modules[module].launches += 1
+        _add(key, 1)
+
+
+def _add(key: str, count: int):
+    module, _, counter = key.partition(":")
+    mod, counter = sys.modules[module], counter or "launches"
+    setattr(mod, counter, getattr(mod, counter) + count)
 
 
 @contextlib.contextmanager
 def tally_launches():
     """Around the capture of a CUDA graph: yields the dict {module: launches}
-    of the kernels the graph holds."""
+    of the kernels the graph holds ("module:counter" for a count other than
+    a module's `launches`)."""
     tally: dict[str, int] = {}
     _tallies.append(tally)
     try:
@@ -154,5 +162,5 @@ def tally_launches():
 
 def add_launches(tally: dict[str, int]):
     """Count one replay of a graph whose capture gave `tally`."""
-    for module, count in tally.items():
-        sys.modules[module].launches += count
+    for key, count in tally.items():
+        _add(key, count)

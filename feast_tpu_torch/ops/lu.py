@@ -233,9 +233,12 @@ def lu_factor_inplace(buf: torch.Tensor, n: int, span=None):
 
     span: a `utils.tracing` span handle around the call, or None.  On the
     kernel route, while spans record, it gets `moved_rows`, the rows the
-    row swaps moved (a device count, resolved by `tracing.spans()`), and
+    row swaps moved (a device count, resolved by `tracing.spans()`),
     `gathered_rows`, the rows a gather of every row >= j a panel would
-    rewrite (sum over panels and matrices of n_pad - j).
+    rewrite (sum over panels and matrices of n_pad - j), `trail_updates`,
+    the trailing updates (panels but the last, times matrices), and
+    `trail_kernel_updates`, those the tensor-core kernel ran
+    (`cmatmul_kernel.acc_launches`, times matrices).
 
     The route is the one `factor_buffer` chose, read from the buffer's
     shape, so a backend switched in between changes nothing: a padded
@@ -259,17 +262,23 @@ def lu_factor_inplace(buf: torch.Tensor, n: int, span=None):
     Elsewhere `buf` is n x n and takes `lu_factor`'s plain path, in place
     too: the store is never held twice."""
     if buf.shape[-1] != n or (n % 128 == 0 and _kernel_route(buf.dtype, buf.device)):
-        from . import panel_lu
+        from . import cmatmul_kernel, panel_lu
 
         moved = None
-        if span is not None and span.active:
+        traced = span is not None and span.active
+        if traced:
             n_pad, block = buf.shape[-1], 128
             matrices = buf.numel() // (n_pad * n_pad)
             moved = torch.zeros((), dtype=torch.int64, device=buf.device)
             span.set("moved_rows", moved)
             span.set("gathered_rows",
                      matrices * sum(n_pad - j for j in range(0, n_pad, block)))
+            kernel_updates = cmatmul_kernel.acc_launches
         LU, perm = panel_lu.lu_factor_panel(buf, inplace=True, moved=moved)
+        if traced:
+            span.set("trail_updates", matrices * (n_pad // block - 1))
+            span.set("trail_kernel_updates",
+                     matrices * (cmatmul_kernel.acc_launches - kernel_updates))
         return LU[..., :n, :n], perm[..., :n]
     return _lu_factor_plain(buf, _auto_block(n), inplace=True)
 
@@ -329,8 +338,7 @@ def lu_factor(A: torch.Tensor, block: int = 0, loop: str = "auto"):
                      "expected 'auto', 'unrolled', 'fori' or 'pallas'")
 
 
-# The plain loop's row gathers and trailing updates (and the panel route's
-# trailing products under the "cuda" gemm backend) run over chunks of the
+# The plain loop's row gathers and trailing updates run over chunks of the
 # batch of at most this many bytes of matrices, so that their temporaries
 # stay a fraction of a large store (the stacked slices' 64 node matrices
 # of n = 4096: 8.6 GB in complex64); every batch of one solve's nodes at

@@ -18,7 +18,8 @@ and `card_plan` asks the built kernel for the plan it takes on this card.
 `lu_factor_panel` mirrors `lu_factor_pallas`: per panel one kernel call,
 the panel's row permutation applied to the other columns on the rows it
 moves (`row_swap`, the kernel `csrc/row_swap.cu`), U12 = invL11 @ A12,
-and the trailing update accumulated in place by one matrix product.
+and the trailing update A22 <- A22 - L21 U12 accumulated in place by the
+tensor-core kernel `csrc/cmatmul.cu` (`cmatmul_kernel.addmm_`).
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import torch
 
 from .. import cx
 from ..kernels import _build
-from . import row_swap
-from .lu import _swap_rows, batch_chunks
+from . import cmatmul_kernel, row_swap
+from .lu import _swap_rows
 
 # Launches of the CUDA kernel (plain-version calls do not count; a graph's
 # replays count the launches it holds, `_build.count_launch`).
@@ -194,11 +195,10 @@ def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor,
 
     Each panel works on the whole batch in place: the panel step, its row
     swaps on the rows they move (`row_swap.apply_panel_perm`), U12 =
-    invL11 @ A12, and the trailing update accumulated by the matrix product
-    itself, A22 += -1 * L21 @ U12 (beta = 1: no product temporary, no
-    separate subtraction).  Under `cx.set_gemm_backend("cuda")` the trailing
-    product is K3's, then subtracted, by chunks of the batch
-    (`lu.batch_chunks`) that keep its temporary below 4 GiB."""
+    invL11 @ A12, and the trailing update A22 += -1 * L21 @ U12 by
+    `cmatmul_kernel.addmm_`, whatever `cx`'s gemm backend: on the card the
+    tensor-core kernel accumulating into A22 in place (no temporary, no
+    separate subtraction), on the CPU its plain version."""
     n = A.shape[-1]
     if A.shape[-2] != n or n % block != 0:
         raise ValueError(f"lu_factor_panel needs square (..., n, n) with "
@@ -208,7 +208,6 @@ def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor,
     batch = A.shape[:-2]
     A3 = A.reshape(-1, n, n) if inplace else A.reshape(-1, n, n).clone()
     perm = torch.arange(n, device=A.device).repeat(A3.shape[0], 1)
-    product_then_subtract = cx._GEMM_BACKEND == "cuda" and A3.dtype == torch.complex64
     for j in range(0, n, block):
         e = j + block
         _, pb, invL = panel(A3[:, :, j:e], j)
@@ -218,10 +217,5 @@ def lu_factor_panel(A: torch.Tensor, block: int = 128, panel=panel_factor,
             # the product's temporary goes with the statement: no two panels'
             # U12 are ever held at once
             A3[:, j:e, e:] = cx.cmatmul(invL, A3[:, j:e, e:])
-            L21, U12 = A3[:, e:, j:e], A3[:, j:e, e:]
-            if product_then_subtract:
-                for c in batch_chunks(A3):
-                    A3[c, e:, e:].sub_(cx.cmatmul(L21[c], U12[c]))
-            else:
-                A3[:, e:, e:].baddbmm_(L21, U12, alpha=-1)
+            cmatmul_kernel.addmm_(A3[:, e:, e:], A3[:, e:, j:e], A3[:, j:e, e:], -1.0)
     return A3.reshape(batch + (n, n)), perm.reshape(batch + (n,))

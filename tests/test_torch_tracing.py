@@ -339,7 +339,9 @@ def test_moved_rows_resolve_without_a_synchronisation_inside_the_factor(monkeypa
     the row swaps' device count, still a tensor when the factor returns,
     with every host read and synchronisation patched to raise inside it;
     `spans()` resolves it to the rows the panels' permutations moved, and
-    `gathered_rows` is sum over panels and matrices of n_pad - j."""
+    `gathered_rows` is sum over panels and matrices of n_pad - j; of the
+    N trailing updates (one a matrix) the CPU's plain version ran all, the
+    tensor-core kernel none."""
     from feast_tpu_torch.ops import lu as lumod
     from feast_tpu_torch.ops import row_swap
 
@@ -374,5 +376,6 @@ def test_moved_rows_resolve_without_a_synchronisation_inside_the_factor(monkeypa
     rec = next(r for r in tracing.spans() if r["name"] == "feast.factor.lu")
     want = sum(int((p[:, j:] != torch.arange(j, 256, dtype=p.dtype)).sum()) for j, p in perms)
     assert len(perms) == 2
-    assert rec["attrs"] == {"moved_rows": want, "gathered_rows": N * (256 + 128)}
+    assert rec["attrs"] == {"moved_rows": want, "gathered_rows": N * (256 + 128),
+                            "trail_updates": N, "trail_kernel_updates": 0}
     assert type(rec["attrs"]["moved_rows"]) is int and 0 < want <= 2 * 128 * 2 * N
